@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, verify a
-mainnet-shaped block, time.
+mainnet-shaped block, run a mainnet phase0 block through
+``state_transition``, time.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--validators N]
 
 Phases, each fatal on failure (no phase's failure is caught):
 
@@ -22,14 +23,35 @@ Phases, each fatal on failure (no phase's failure is caught):
    then time each kernel at the flush's shapes (CUDA events, after one
    warm-up) beside its plain version and its bound, and time the block
    flush and the 128-lane batch;
-5. print the ``kernels`` line, the card line and the result line.
+5. hold K5 ``hash64`` and K6 ``sha256_blocks`` byte-identical to their
+   plain versions on the card and to hashlib, on seeded rows (n = 1, 3,
+   255, 256, 257, 4096) and on 1-, 2- and 5-block messages;
+6. a mainnet phase0 block through the port's ``state_transition`` on the
+   card (``build_spec("phase0", "mainnet")``, ``bls.use_torch()``,
+   ``sha256.install_merkle_hasher()``): a ``BeaconState`` of 2^20 active
+   validators (``--validators``), a block at slot 3 with 128
+   attestations (the 64 committees of slots 1 and 2, every bit set, each
+   signed with the sum of its members' secret keys), the proposer
+   signature and the randao reveal - 130 RLC items, 65,538 keys.  The
+   pre-state's cold root on K5 must equal the hashlib root of a fresh
+   deserialization; the block must pass ``state_transition`` with one
+   product pairing; the post-state's hashlib root must equal the block's
+   ``state_root``; a forged attestation signature must be named alone;
+   a wrong ``state_root`` must raise.  Every K5 launch of the transition,
+   the cold root's largest launch and one launch per tree level are held
+   against the plain version; set-up, the cold root (K5 against
+   hashlib), the transition's stages, K5 per launch and the copies are
+   timed;
+7. print the ``kernels`` line (K1-K6), the card line and the result line.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
-The registry is cut from mainnet's 2^20 validators to 1,024 keys: the
-host-side KeyValidate (decompression and subgroup check, paid once per
-registry key, not per block) dominates set-up otherwise; the device work
-per block does not depend on the registry size.
+The registry holds 1,024 keys, not mainnet's 2^20: the host-side
+KeyValidate (decompression and subgroup check, ~31 ms of python per key,
+paid once per registry key, not per block) dominates set-up otherwise;
+the 2^20 validators of phase 6 cycle over those keys.  The device work
+per block does not depend on the number of distinct keys.
 """
+import argparse
 import hashlib
 import json
 import os
@@ -43,11 +65,19 @@ COMMITTEE = 512             # 2^20 validators / (32 slots x 64 committees)
 ATTESTATIONS = 128          # MAX_ATTESTATIONS
 SYNC = 512                  # SYNC_COMMITTEE_SIZE
 KERNELS = ("g1_aggregate_scale", "g2_scale_sum", "hash_to_g2", "pairing_check")
+VALIDATORS = 1 << 20        # mainnet's registry: committees of 512
+BLOCK_SLOT = 3
+FORGED = 37                 # the attestation whose signature is forged
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # 32-bit integer multiply-add throughput of an H100 SXM: 64 per clock per
 # SM (compute capability 9.0 in the CUDA C++ Programming Guide's
 # throughput table; a 32 x 32 -> 64 product is two of them, the low and
 # the high half) x 132 SMs x 1.98 GHz boost clock
 IMAD_PER_S = 64 * 132 * 1.98e9
+# 32-bit integer logic (LOP3), shift and funnel-shift results, which only
+# the integer ALU executes: the same table gives 64 per clock per SM at
+# compute capability 9.0, so the same rate (derived, not measured)
+INT32_OPS_PER_S = IMAD_PER_S
 
 
 def card_line() -> str:
@@ -164,7 +194,451 @@ def compare(torch, name, got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# slice 2: SHA-256 kernels and a mainnet phase0 block
+# ---------------------------------------------------------------------------
+
+def seeded_rows(n: int) -> bytes:
+    """n seeded 64-byte rows; the first three all-zero, all-ones and
+    top-bit-set (signed bit patterns once packed as int32 words)."""
+    out = bytearray(hashlib.shake_256(SEED + b"rows" + n.to_bytes(4, "little"))
+                    .digest(64 * n))
+    for i, fill in enumerate((0x00, 0xFF, 0x80)[:n]):
+        out[64 * i:64 * (i + 1)] = bytes([fill]) * 64
+    return bytes(out)
+
+
+def sha_kernel_checks(torch, cu, sha256) -> dict:
+    """Phase 5: K5 and K6 against their plain versions on the card and
+    hashlib; returns the largest K6 call's arguments for timing."""
+    for n in (1, 3, 255, 256, 257, 4096):
+        raw = seeded_rows(n)
+        rows = torch.frombuffer(bytearray(raw), dtype=torch.uint8).reshape(n, 64).to(cu)
+        got = sha256.hash64(rows)
+        compare(torch, f"K5 (n={n})", got, sha256.hash64_plain(rows))
+        want = b"".join(hashlib.sha256(raw[64 * i:64 * (i + 1)]).digest() for i in range(n))
+        check(got.cpu().numpy().tobytes() == want, f"K5 differs from hashlib at n={n}")
+    k6 = None
+    for nb in (1, 2, 5):
+        msgs = [hashlib.shake_256(SEED + bytes([nb, i])).digest(64 * (nb - 1) + i % 56)
+                for i in range(256)]
+        words = torch.stack([torch.from_numpy(sha256.pad_message(m).copy()) for m in msgs])
+        check(tuple(words.shape) == (256, nb, 16), f"padding gave {tuple(words.shape)}")
+        w = words.to(cu)
+        got = sha256.sha256_blocks(w, nb)
+        compare(torch, f"K6 ({nb} blocks)", got, sha256.sha256_blocks_plain(w))
+        digests = got.cpu().numpy().astype(">u4").tobytes()
+        check(digests == b"".join(hashlib.sha256(m).digest() for m in msgs),
+              f"K6 differs from hashlib at {nb} blocks")
+        k6 = (w, nb)
+    check(sha256.sha256_bytes(b"abc", cu) == hashlib.sha256(b"abc").digest(), "sha256_bytes")
+    print("kernel checks (small inputs): K5 at n = 1, 3, 255, 256, 257, 4096 and K6 on "
+          "1-, 2- and 5-block messages byte-identical to their plain versions on the "
+          "card and to hashlib (tolerance 0: bytes)")
+    return {"sha256_blocks": k6}
+
+
+class K5Recorder:
+    """Wraps ``sha256.hash64`` while active: counts launches by row count
+    and keeps the rows of the first launch of every row count (or of
+    every launch), so each can be held against the plain version."""
+
+    def __init__(self, sha256):
+        self.mod, self.fn = sha256, sha256.hash64
+        self.rows, self.count = [], {}
+        self.keep_all = False
+
+    def __enter__(self):
+        def wrapped(rows):
+            n = rows.shape[0]
+            if self.keep_all or n not in self.count:
+                self.rows.append(rows)
+            self.count[n] = self.count.get(n, 0) + 1
+            return self.fn(rows)
+        self.mod.hash64 = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hash64 = self.fn
+
+
+class HasherClock:
+    """Wall ms spent inside the merkle engine's installed batched hasher
+    (staging copy, H2D, K5, D2H), both entry points."""
+
+    def __init__(self, merkle):
+        self.merkle, self.ms = merkle, 0.0
+        self.fns = (merkle._batched_hasher, merkle._batched_hasher_np)
+
+    def _timed(self, fn):
+        def timed(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+        return timed
+
+    def __enter__(self):
+        self.merkle.set_batched_hasher(self._timed(self.fns[0]))
+        self.merkle.set_batched_hasher_np(self._timed(self.fns[1]))
+        return self
+
+    def __exit__(self, *exc):
+        self.merkle.set_batched_hasher(self.fns[0])
+        self.merkle.set_batched_hasher_np(self.fns[1])
+
+
+def hashlib_root(ssz, merkle, typ, value) -> tuple:
+    """The root of ``value`` recomputed the independent way: serialize,
+    deserialize afresh, hash with no batched hasher (hashlib only).
+    Returns (root, serialize+deserialize s, hashing s)."""
+    t0 = time.perf_counter()
+    fresh = ssz.deserialize(typ, ssz.serialize(value))
+    t1 = time.perf_counter()
+    saved = (merkle._batched_hasher, merkle._batched_hasher_np)
+    merkle.set_batched_hasher(None)
+    merkle.set_batched_hasher_np(None)
+    try:
+        root = bytes(ssz.hash_tree_root(fresh))
+    finally:
+        merkle.set_batched_hasher(saved[0])
+        merkle.set_batched_hasher_np(saved[1])
+    return root, t1 - t0, time.perf_counter() - t1
+
+
+def build_registry_state(spec, ssz, np, pks, n: int):
+    """A mainnet ``BeaconState`` at slot 0 with ``n`` active validators at
+    32 ETH, validator i keyed by registry key i mod len(pks).  The
+    registry and balances are built as numpy SSZ buffers and
+    deserialized; nothing is hashed."""
+    from consensus_specs_tpu_torch.utils.hash_function import hash as sha
+    far = 2**64 - 1
+    keys = np.frombuffer(b"".join(pks), dtype=np.uint8).reshape(len(pks), 48)
+    creds = np.frombuffer(b"".join(spec.BLS_WITHDRAWAL_PREFIX + sha(pk)[1:] for pk in pks),
+                          dtype=np.uint8).reshape(len(pks), 32)
+    rec = np.zeros((n, 121), dtype=np.uint8)
+    idx = np.arange(n) % len(pks)
+    rec[:, :48] = keys[idx]
+    rec[:, 48:80] = creds[idx]
+    fields = np.array([spec.MAX_EFFECTIVE_BALANCE], dtype="<u8").view(np.uint8)
+    rec[:, 80:88] = fields                                   # effective_balance
+    rec[:, 89:105] = 0                                       # eligibility, activation
+    rec[:, 105:121] = np.array([far, far], dtype="<u8").view(np.uint8)   # exit, withdrawable
+    block_hash = hashlib.sha256(SEED + b"eth1").digest()
+    state = spec.BeaconState(
+        genesis_time=1606824023,
+        genesis_validators_root=hashlib.sha256(SEED + b"genesis").digest(),
+        fork=spec.Fork(previous_version=spec.config.GENESIS_FORK_VERSION,
+                       current_version=spec.config.GENESIS_FORK_VERSION, epoch=0),
+        latest_block_header=spec.BeaconBlockHeader(
+            body_root=ssz.hash_tree_root(spec.BeaconBlockBody())),
+        eth1_data=spec.Eth1Data(deposit_root=hashlib.sha256(SEED + b"deposits").digest(),
+                                deposit_count=n, block_hash=block_hash),
+        eth1_deposit_index=n,
+        randao_mixes=[block_hash] * spec.EPOCHS_PER_HISTORICAL_VECTOR,
+    )
+    state.validators = ssz.deserialize(type(state.validators), rec.tobytes())
+    bal = np.full(n, spec.MAX_EFFECTIVE_BALANCE, dtype="<u8")
+    state.balances = ssz.deserialize(type(state.balances), bal.tobytes())
+    return state
+
+
+def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
+    """Phase 6: a mainnet phase0 block through ``state_transition`` on
+    ``dev``.  Returns the K5 entry of the ``kernels`` line and the launch
+    counts of the transition."""
+    import numpy as np
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import att_prep, bls_rlc, bls_torch, sha256
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+
+    spec = build_spec("phase0", "mainnet")
+    bls.use_torch(dev)
+    sha256.install_merkle_hasher(dev)
+
+    t0 = time.perf_counter()
+    state = build_registry_state(spec, ssz, np, pks, n_validators)
+    t_state = time.perf_counter() - t0
+    print(f"phase0: state of {n_validators} active validators (keys cycle over "
+          f"{len(pks)}); reduced: registry keys {len(pks)} (mainnet: one per "
+          f"validator); set-up: state build {t_state:.2f} s (host)")
+
+    # -- the cold root: K5 against hashlib ------------------------------------
+    merkle.reset_stats()
+    torch.cuda.synchronize()
+    with K5Recorder(sha256) as cold, HasherClock(merkle) as hclock:
+        t0 = time.perf_counter()
+        root_k5 = bytes(ssz.hash_tree_root(state))
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+    cold_stats = merkle.stats()
+    root_hl, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, state)
+    check(root_k5 == root_hl, "the cold root on K5 differs from the hashlib root")
+    print(f"cold root: {root_k5.hex()} equal on K5 and hashlib; K5 path {t_cold:.3f} s "
+          f"(in the batched hasher {hclock.ms / 1e3:.3f} s; {sum(cold.count.values())} "
+          f"launches), hashlib {t_hl:.3f} s (+ {t_ser:.2f} s serialize/deserialize); "
+          f"pairs by K5 {cold_stats['pairs_batched']}, by hashlib "
+          f"{cold_stats['pairs_hashlib']} on {card}")
+
+    # -- the block -------------------------------------------------------------
+    dry = state.copy()
+    t0 = time.perf_counter()
+    spec.process_slots(dry, BLOCK_SLOT)
+    t_slots_dry = time.perf_counter() - t0
+    proposer = int(spec.get_beacon_proposer_index(dry))
+
+    def sk_of(v):
+        return sks[v % len(sks)]
+
+    t0 = time.perf_counter()
+    committees = {(s, c): spec.get_beacon_committee(dry, s, c)
+                  for s in (1, 2)
+                  for c in range(int(spec.get_committee_count_per_slot(dry, 0)))}
+    t_comm = time.perf_counter() - t0
+    att_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_ATTESTER, 0)
+    t0 = time.perf_counter()
+    atts = []
+    for (s, c), members in committees.items():
+        data = spec.AttestationData(
+            slot=s, index=c, beacon_block_root=spec.get_block_root_at_slot(dry, s),
+            source=dry.current_justified_checkpoint,
+            target=spec.Checkpoint(epoch=0, root=spec.get_block_root(dry, 0)))
+        sk = sum(sk_of(v) for v in members) % R_ORDER
+        atts.append(spec.Attestation(
+            aggregation_bits=[True] * len(members), data=data,
+            signature=O.Sign(sk, spec.compute_signing_root(data, att_domain))))
+    randao = O.Sign(sk_of(proposer), spec.compute_signing_root(
+        spec.uint64(0), spec.get_domain(dry, spec.DOMAIN_RANDAO)))
+    t_sign = time.perf_counter() - t0
+    block = spec.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=ssz.hash_tree_root(dry.latest_block_header),
+        body=spec.BeaconBlockBody(randao_reveal=randao, eth1_data=dry.eth1_data,
+                                  attestations=atts))
+    n_keys = sum(len(m) for m in committees.values()) + 2
+    print(f"block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations "
+          f"(committees of {len(next(iter(committees.values())))}), {len(atts) + 2} RLC "
+          f"items, {n_keys} keys; set-up: committees {t_comm:.2f} s ({len(committees)} "
+          f"computed, {t_comm / len(committees) * 1e3:.1f} ms each), signing "
+          f"{t_sign:.2f} s (host)")
+
+    prop_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_PROPOSER)
+
+    def signed(msg):
+        sig = O.Sign(sk_of(proposer), spec.compute_signing_root(msg, prop_domain))
+        return spec.SignedBeaconBlock(message=msg, signature=sig)
+
+    # the state root from a dry run of the transition on the copy
+    bls.bls_active = False
+    t0 = time.perf_counter()
+    spec.process_block(dry, block.copy())
+    block.state_root = ssz.hash_tree_root(dry)
+    t_dry = time.perf_counter() - t0
+    bls.bls_active = True
+    del dry
+    print(f"dry run on a copy: process_slots {t_slots_dry:.2f} s, process_block + root "
+          f"{t_dry:.2f} s (recomputes the {len(committees)} committees: the randao reveal "
+          f"changes the cache key)")
+
+    # -- the transition on the card ------------------------------------------------
+    clock = StageClock()
+    post = state.copy()
+    good = signed(block.copy())
+    for name in ("process_slots", "process_block"):
+        clock.wrap(spec, name)
+    clock.wrap(att_prep, "prepare_block_attestations")
+    clock.wrap(bls.DeferredBatch, "flush")
+    clock.wrap(bls_rlc, "derive_scalars")
+    for name in ("_decompress_g2", "_stack_pk_rows", "hash_to_field_host"):
+        clock.wrap(bls_torch, name)
+    bls.clear_verify_memo()
+    merkle.reset_stats()
+    torch.cuda.synchronize()
+    with K5Recorder(sha256) as rec:
+        rec.keep_all = True
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with bls.scoped_batch(bls.DeferredBatch()) as batch:
+            spec.state_transition(post, good)
+        torch.cuda.synchronize()
+        t_total = (time.perf_counter() - t0) * 1e3
+        launches = dict(_build.launches)
+    clock.restore()
+    tr_stats = merkle.stats()
+    check(batch.pairings == 1, f"expected one product pairing, got {batch.pairings}")
+    check(batch.last_results == [True] * (len(atts) + 2), "last_results must be all True")
+    path_kernels = KERNELS + ("hash64",)
+    check(all(launches[k] > 0 for k in path_kernels),
+          f"a kernel of the transition was not launched: {launches}")
+    ms = clock.ms
+    block_rest = ms["process_block"] - ms["prepare_block_attestations"] - ms["flush"]
+    root_ms = t_total - ms["process_slots"] - ms["process_block"]
+    print(f"state_transition: passed with {batch.pairings} product pairing, "
+          f"{len(batch.last_results)} items; launches {launches}")
+    print(f"time state_transition (validate_result=True): {t_total:.2f} ms = slots "
+          f"{ms['process_slots']:.2f} ({ms['process_slots'] / BLOCK_SLOT:.2f} per empty "
+          f"slot) + att_prep {ms['prepare_block_attestations']:.2f} + flush "
+          f"{ms['flush']:.2f} + rest of process_block {block_rest:.2f} + state-root "
+          f"check and block signature {root_ms:.2f}; K5 launches "
+          f"{sum(rec.count.values())} at rows {sorted(rec.count)}; pairs by K5 "
+          f"{tr_stats['pairs_batched']}, by hashlib {tr_stats['pairs_hashlib']} on {card}")
+    print(f"flush host stages (ms, wall clock): _decompress_g2 {ms['_decompress_g2']:.2f} "
+          f"({len(atts) + 2} new signatures), _stack_pk_rows {ms['_stack_pk_rows']:.2f}, "
+          f"derive_scalars {ms['derive_scalars']:.2f}, hash_to_field_host "
+          f"{ms['hash_to_field_host']:.2f}; rest of the flush (kernels, waits) "
+          f"{ms['flush'] - ms['_decompress_g2'] - ms['_stack_pk_rows'] - ms['derive_scalars'] - ms['hash_to_field_host']:.2f} on {card}")
+
+    # one more run of the same transition under the profiler: device busy
+    # time and idle share (the signatures' decompression is cached now)
+    prof_state, prof_block = state.copy(), good.copy()
+    bls.clear_verify_memo()
+
+    def transition():
+        with bls.scoped_batch(bls.DeferredBatch()):
+            spec.state_transition(prof_state, prof_block)
+    prof_wall, dev_ms = profile_once(torch, transition)
+    busy = sum(dev_ms.values())
+    del prof_state
+    top = ", ".join(f"{k} {v:.3f}" for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
+    print(f"state_transition profile (second run, signatures already decompressed): wall "
+          f"{prof_wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / prof_wall:.3f}; device ms by event: {top} on {card}")
+
+    root_post, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, post)
+    check(root_post == bytes(block.state_root),
+          "the post-state's hashlib root differs from the block's state_root")
+    print(f"post-state root: hashlib recompute equals the block's state_root "
+          f"({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize)")
+    del post
+
+    # -- the two rejections ---------------------------------------------------------
+    forged = block.copy()
+    forged.body.attestations[FORGED].signature = forged.body.attestations[0].signature
+    bls.clear_verify_memo()
+    bad_state = state.copy()
+    with bls.scoped_batch(bls.DeferredBatch()) as batch:
+        try:
+            spec.state_transition(bad_state, signed(forged))
+            fail("a forged attestation signature passed state_transition")
+        except AssertionError:
+            pass
+    failed = [i for i, ok in enumerate(batch.last_results) if not ok]
+    check(failed == [FORGED + 2], f"forged attestation not isolated: {failed}")
+    print(f"forged attestation {FORGED}: AssertionError, last_results names item {failed} "
+          f"alone (items: proposer, randao, attestations)")
+    wrong = block.copy()
+    wrong.state_root = b"\x01" * 32
+    bad_state = state.copy()
+    with bls.scoped_batch(bls.DeferredBatch()) as batch:
+        try:
+            spec.state_transition(bad_state, signed(wrong))
+            fail("a wrong state_root passed state_transition")
+        except AssertionError:
+            pass
+    check(batch.last_results is not None and all(batch.last_results),
+          "the wrong-root block must fail at the root check, not at a signature")
+    print("wrong state_root: AssertionError at the state-root check (signatures passed)")
+    del bad_state
+
+    # -- K5 at the transition's shapes, the cold root's largest launch and one
+    # launch per level; timings ------------------------------------------------------
+    fn, err = rec.fn, 0
+    held = rec.rows + cold.rows
+    for rows in held:
+        err = max(err, compare(torch, f"K5 (n={rows.shape[0]})", fn(rows),
+                               sha256.hash64_plain(rows)))
+    big = max(cold.rows, key=lambda r: r.shape[0])
+    print(f"check hash64: equal to its plain version at every transition launch "
+          f"{[r.shape[0] for r in rec.rows]} and at the cold root's first launch of every "
+          f"row count ({len(cold.rows)} shapes, largest {big.shape[0]})")
+    shape = max(rec.rows, key=lambda r: r.shape[0])
+    n = shape.shape[0]
+    k_ms = cuda_ms(torch, lambda: fn(shape))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sha256.hash64_plain(shape)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    big_ms = cuda_ms(torch, lambda: fn(big))
+    cold_kernel_ms = 0.0
+    for rows in cold.rows:
+        cold_kernel_ms += cuda_ms(torch, lambda: fn(rows)) * cold.count[rows.shape[0]]
+
+    def bound(m):
+        ops = sha256.hash64_int_ops(m) / INT32_OPS_PER_S
+        return max(ops, 96 * m / HBM_BYTES_PER_S) * 1e3, ops * 1e3
+
+    b_ms, _ = bound(n)
+    big_b, big_ops = bound(big.shape[0])
+    host_big = big.cpu().numpy().tobytes()
+    t0 = time.perf_counter()
+    for i in range(0, len(host_big), 64):
+        hashlib.sha256(host_big[i:i + 64]).digest()
+    hl_big_ms = (time.perf_counter() - t0) * 1e3
+    pinned = torch.empty(big.shape, dtype=torch.uint8, pin_memory=True)
+    h2d_ms = cuda_ms(torch, lambda: pinned.to(dev, non_blocking=True))
+    out = fn(big)
+    d2h_ms = cuda_ms(torch, lambda: out.cpu())
+    small_pinned = torch.empty((n, 64), dtype=torch.uint8, pin_memory=True)
+    small_h2d = cuda_ms(torch, lambda: small_pinned.to(dev, non_blocking=True))
+    small_out = fn(shape)
+    small_d2h = cuda_ms(torch, lambda: small_out.cpu())
+    print(f"time hash64 at the transition's largest launch (n={n}): {k_ms:.4f} ms "
+          f"(plain {p_ms:.1f} ms, bound {b_ms:.6f} ms); H2D {small_h2d:.4f} ms, D2H "
+          f"{small_d2h:.4f} ms per call on {card}")
+    print(f"time hash64 at the cold root's largest launch (n={big.shape[0]}): "
+          f"{big_ms:.3f} ms (bound {big_b:.4f} ms by operations {big_ops:.4f} ms, bytes "
+          f"{96 * big.shape[0] / HBM_BYTES_PER_S * 1e3:.4f} ms; hashlib on the host "
+          f"{hl_big_ms:.1f} ms); H2D {h2d_ms:.3f} ms, D2H {d2h_ms:.3f} ms; all "
+          f"{sum(cold.count.values())} cold-root launches {cold_kernel_ms:.3f} ms of "
+          f"kernel time on {card}")
+    return {"name": "hash64", "route": "cuda",
+            "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
+            "replaces": "consensus_specs_tpu/ops/sha256.py:104",
+            "launches": launches["hash64"], "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": "operations" if bound(n)[1] >= 96 * n / HBM_BYTES_PER_S * 1e3
+            else "bytes",
+            "library_ms": None, "rows": n, "h2d_ms": small_h2d, "d2h_ms": small_d2h,
+            "hashlib_ms_at_cold_max": hl_big_ms, "cold_max_rows": int(big.shape[0]),
+            "cold_max_ms": big_ms, "cold_kernel_ms": cold_kernel_ms,
+            "cold_root_s": t_cold, "hashlib_root_s": t_hl}, launches
+
+
+def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
+    """The K6 entry of the ``kernels`` line, timed at its largest checked
+    call; ``launches`` is its count in the transition (K6 is a test aid,
+    not on the transition's path: 0)."""
+    w, nb = args
+    m = w.shape[0]
+    k_ms = cuda_ms(torch, lambda: sha256.sha256_blocks(w, nb))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sha256.sha256_blocks_plain(w)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(torch, "K6", sha256.sha256_blocks(w, nb), want)
+    ops_ms = sha256.sha256_blocks_int_ops(m, nb) / INT32_OPS_PER_S * 1e3
+    bytes_ms = (64 * nb + 32) * m / HBM_BYTES_PER_S * 1e3
+    return {"name": "sha256_blocks", "route": "cuda",
+            "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
+            "replaces": "consensus_specs_tpu/ops/sha256.py:141",
+            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "messages": m, "blocks": nb}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--validators", type=int, default=VALIDATORS,
+                    help="active validators of the phase0 state (default 2^20)")
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -323,7 +797,7 @@ def main() -> int:
     check(ok is True, "the block's RLC flush must pass")
     check(batch.pairings == 1, f"expected one product pairing, got {batch.pairings}")
     check(batch.last_results == [True] * len(items), "last_results must be all True")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(all(launches[k] > 0 for k in KERNELS), f"a kernel was not launched: {launches}")
     print(f"flush: True with {batch.pairings} product pairing; launches {launches}")
 
     path[0] = "lanes"
@@ -446,7 +920,16 @@ def main() -> int:
           f"(first, cold caches: {flush_first_ms:.1f} ms) on {card}")
     print(f"time per-lane batch (128 attestations): {lanes_ms:.2f} ms on {card}")
 
-    # ---- 5. result lines ---------------------------------------------------
+    # ---- 5. the SHA-256 kernels against their plain versions and hashlib ---
+    from consensus_specs_tpu_torch.ops import sha256
+    k6_args = sha_kernel_checks(torch, cu, sha256)["sha256_blocks"]
+
+    # ---- 6. a mainnet phase0 block through state_transition -----------------
+    k5, block_launches = phase0_block(torch, cu, card, sks, pks, opts.validators)
+    kernels.append(k5)
+    kernels.append(sha256_blocks_entry(torch, sha256, k6_args, block_launches["sha256_blocks"]))
+
+    # ---- 7. result lines ---------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,13 +27,13 @@ from .ops.bls12_381 import hash_to_curve as _H
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-LIBS = ("points", "htc", "pairing")
+LIBS = ("points", "htc", "pairing", "sha256")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # kernel name -> launches on the card since the last reset (one per
 # wrapper call that launched the kernel; CPU calls do not count)
 launches = {"g1_aggregate_scale": 0, "g2_scale_sum": 0, "hash_to_g2": 0,
-            "pairing_check": 0}
+            "pairing_check": 0, "hash64": 0, "sha256_blocks": 0}
 
 _lock = threading.Lock()
 _libs = {}
@@ -120,6 +120,18 @@ def tower_constants() -> str:
     return "\n".join(lines) + "\n"
 
 
+def sha256_constants() -> str:
+    """SHA-256's round constants, initial state and the pad block's K + W
+    table, from the plain version's module."""
+    from .ops import sha256 as S
+
+    def arr(name, vals):
+        return (f"#define {name} {{" + ", ".join(f"0x{v:08x}u" for v in vals)
+                + "}")
+    return "\n".join(["#pragma once", arr("SHA_K", S.K), arr("SHA_H0", S.H0),
+                      arr("SHA_PAD_KW", S.PAD_KW)]) + "\n"
+
+
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
@@ -131,6 +143,7 @@ def _digest() -> str:
         h.update(f.read_bytes())
     h.update(constants_header().encode())
     h.update(tower_constants().encode())
+    h.update(sha256_constants().encode())
     return h.hexdigest()[:16]
 
 
@@ -156,6 +169,7 @@ def build_all() -> dict:
     gen.mkdir(parents=True, exist_ok=True)
     (gen / "bls_constants.cuh").write_text(constants_header())
     (gen / "tower_constants.cuh").write_text(tower_constants())
+    (gen / "sha256_constants.cuh").write_text(sha256_constants())
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
@@ -190,9 +204,12 @@ _SIGS = {
     "hash_to_g2": [_VP, _VP, _VP, ctypes.c_int, _VP],
     "pairing_check": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int,
                       ctypes.c_int, _VP],
+    "hash64": [_VP, _VP, ctypes.c_int, _VP],
+    "sha256_blocks": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP],
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
-         "hash_to_g2": "htc", "pairing_check": "pairing"}
+         "hash_to_g2": "htc", "pairing_check": "pairing",
+         "hash64": "sha256", "sha256_blocks": "sha256"}
 
 
 def load(lib: str) -> ctypes.CDLL:

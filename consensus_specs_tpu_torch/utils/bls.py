@@ -7,17 +7,33 @@ Counterpart of ``consensus_specs_tpu/utils/bls.py``:
                            without CUDA raises - pass "cpu" for the
                            plain PyTorch versions)
 
-``DeferredBatch`` queues a block's assert-style signature checks and
-flushes them as one RLC product pairing (``ops/bls_rlc.py``); when the
-combined check fails, or an item is structurally invalid, it bisects
-through the per-lane batch verify so ``last_results`` names exactly the
-failing items, as ``utils/bls.py:207-294`` of the JAX package does.
-``pairings`` counts pairing-check evaluations, so a run can show one
-product pairing per block.  The JAX package's supervisor, fault sites
-and observability counters are host machinery this port does not carry.
+plus the test kill-switch ``bls_active`` (when False, signing returns
+stubs and verification passes, as the reference's ``bls.py:49-57``).
+
+``batched_verification()`` opens a block's deferred-verification scope:
+inside it, ``Verify`` and ``FastAggregateVerify`` queue their triple in
+the scope's ``DeferredBatch`` and return True, and the caller's
+``assert_valid()`` flushes the queue as one RLC product pairing
+(``ops/bls_rlc.py``); when the combined check fails, or an item is
+structurally invalid, it bisects through the per-lane batch verify so
+``last_results`` names exactly the failing items, as
+``utils/bls.py:207-294`` of the JAX package does.  ``pairings`` counts
+pairing-check evaluations, so a run can show one product pairing per
+block.  Verdicts are memoized by their byte inputs (cleared on a backend
+switch).  The JAX package's supervisor, fault sites, observability
+counters and deferred raw pairing checks are host machinery this port
+does not carry.
 """
+from contextlib import contextmanager
+
 from ..ops import bls_rlc
 from ..ops.bls12_381 import ciphersuite as _py_backend
+from .lru import LRUDict
+
+bls_active = True
+
+STUB_SIGNATURE = b"\x11" * 96
+STUB_PUBKEY = b"\x22" * 48
 
 _backend = _py_backend
 _backend_name = "py"
@@ -26,6 +42,8 @@ _device = None
 
 def use_py():
     global _backend, _backend_name, _device
+    if _backend_name != "py":
+        clear_verify_memo()
     _backend, _backend_name, _device = _py_backend, "py", None
 
 
@@ -36,6 +54,7 @@ def use_torch(device=None):
     from .. import _build
     from ..ops import bls_torch
     _device = _build.device(device)
+    clear_verify_memo()
     _backend, _backend_name = bls_torch, "torch"
 
 
@@ -49,37 +68,26 @@ def _call(fn, *args):
     return getattr(_backend, fn)(*args)
 
 
-def Verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
-    return _call("Verify", bytes(pk), bytes(msg), bytes(sig))
+def only_with_bls(alt_return=None):
+    """Decorator: skip the wrapped call when bls is disabled."""
+    def decorator(fn):
+        def wrapper(*args, **kwargs):
+            if not bls_active:
+                return alt_return
+            return fn(*args, **kwargs)
+        return wrapper
+    return decorator
 
 
-def FastAggregateVerify(pks, msg: bytes, sig: bytes) -> bool:
-    return _call("FastAggregateVerify", [bytes(p) for p in pks], bytes(msg), bytes(sig))
+# Verification results are pure functions of their byte inputs, so a
+# bounded memo is transparent; a replayed block's signatures skip the
+# card.  Cleared on every backend switch, and by callers that time the
+# kernels.
+_verify_memo = LRUDict(1 << 16)
 
 
-def AggregateVerify(pks, msgs, sig: bytes) -> bool:
-    return _call("AggregateVerify", [bytes(p) for p in pks],
-                 [bytes(m) for m in msgs], bytes(sig))
-
-
-def Sign(sk: int, msg: bytes) -> bytes:
-    return _py_backend.Sign(sk, bytes(msg))
-
-
-def SkToPk(sk: int) -> bytes:
-    return _py_backend.SkToPk(sk)
-
-
-def Aggregate(signatures) -> bytes:
-    return _py_backend.Aggregate([bytes(s) for s in signatures])
-
-
-def AggregatePKs(pubkeys) -> bytes:
-    return _py_backend.AggregatePKs([bytes(p) for p in pubkeys])
-
-
-def KeyValidate(pk: bytes) -> bool:
-    return _py_backend.KeyValidate(bytes(pk))
+def clear_verify_memo() -> None:
+    _verify_memo.clear()
 
 
 class DeferredBatch:
@@ -87,17 +95,26 @@ class DeferredBatch:
 
     def __init__(self):
         self.items = []            # (pubkeys, message, signature)
+        self.item_keys = []        # per item: memo keys to record at flush
         self._seen = {}            # triple -> index (in-batch dedup)
         self.last_results = None
         self.pairings = 0          # pairing-check evaluations so far
 
-    def add(self, pubkeys, message, signature):
+    def add(self, pubkeys, message, signature, memo_key=None):
         item = ([bytes(pk) for pk in pubkeys], bytes(message), bytes(signature))
-        key = (tuple(item[0]), item[1], item[2])
-        if key in self._seen:      # one lane serves both call sites
+        if memo_key is None:
+            memo_key = ("fav", tuple(item[0]), item[1], item[2])
+        dedup = (tuple(item[0]), item[1], item[2])
+        idx = self._seen.get(dedup)
+        if idx is not None:
+            # identical triple already queued: one lane serves both call
+            # sites, both memo keys get the result
+            if memo_key not in self.item_keys[idx]:
+                self.item_keys[idx].append(memo_key)
             return
-        self._seen[key] = len(self.items)
+        self._seen[dedup] = len(self.items)
         self.items.append(item)
+        self.item_keys.append([memo_key])
 
     @staticmethod
     def _lane_results(items) -> list:
@@ -105,25 +122,137 @@ class DeferredBatch:
             return _backend.verify_aggregates_batch(items, device=_device)
         return [_backend.FastAggregateVerify(pks, msg, sig) for pks, msg, sig in items]
 
+    def _record(self, keys, results) -> None:
+        for ks, ok in zip(keys, results):
+            for k in ks:
+                _verify_memo[k] = ok
+        self.last_results = results
+
     def flush(self) -> bool:
-        items = self.items
-        self.items, self._seen = [], {}
+        items, keys = self.items, self.item_keys
+        self.items, self.item_keys, self._seen = [], [], {}
         if not items:
             return True
         verdict = bls_rlc.combined_check(items, _backend_name, _device)
         if verdict is not None:
             self.pairings += 1     # the one combined product pairing
         if verdict is True:
-            self.last_results = [True] * len(items)
+            self._record(keys, [True] * len(items))
             return True
         # combined failure or a structurally invalid item: bisect through
         # the per-lane path for exact per-item results
         results = [bool(r) for r in self._lane_results(items)]
         self.pairings += len(items)
-        self.last_results = results
+        self._record(keys, results)
         return all(results)
 
     def assert_valid(self):
         if not self.flush():
             failed = [i for i, r in enumerate(self.last_results) if not r]
             raise AssertionError(f"batched signature verification failed (items {failed})")
+
+
+_batch_stack = []
+
+
+@contextmanager
+def batched_verification():
+    """Defer assert-style signature checks to one batched flush.
+
+    Re-entrant: a nested context joins the enclosing batch, so a whole
+    ``state_transition`` (block signature and body) flushes once."""
+    if _batch_stack:
+        yield _batch_stack[-1]
+        return
+    batch = DeferredBatch()
+    _batch_stack.append(batch)
+    try:
+        yield batch
+    finally:
+        _batch_stack.pop()
+
+
+def batch_scope_active() -> bool:
+    """True while any deferred-verification scope is open."""
+    return bool(_batch_stack)
+
+
+@contextmanager
+def scoped_batch(batch):
+    """Install ``batch`` as the outermost deferred-verification scope, so
+    the caller keeps the batch a transition flushes (its ``pairings`` and
+    ``last_results``).  Refuses to nest inside an active scope."""
+    if _batch_stack:
+        raise RuntimeError("bls.scoped_batch: a batch scope is already active")
+    _batch_stack.append(batch)
+    try:
+        yield batch
+    finally:
+        popped = _batch_stack.pop()
+        assert popped is batch
+
+
+def _verify_or_queue(fn, pks, msg, sig, eager) -> bool:
+    """Memo first (a memoized failure surfaces at once, as it would at the
+    flush); inside a batch scope queue the triple and answer True, else
+    call the backend's ``fn``."""
+    key = ("v", pks[0], msg, sig) if fn == "Verify" else ("fav", tuple(pks), msg, sig)
+    hit = _verify_memo.get(key)
+    if hit is not None:
+        return hit
+    if _batch_stack and not eager:
+        _batch_stack[-1].add(pks, msg, sig, memo_key=key)
+        return True
+    ok = bool(_call(fn, pks[0] if fn == "Verify" else pks, msg, sig))
+    _verify_memo[key] = ok
+    return ok
+
+
+@only_with_bls(alt_return=True)
+def Verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    return _verify_or_queue("Verify", [bytes(pk)], bytes(msg), bytes(sig), eager=False)
+
+
+@only_with_bls(alt_return=True)
+def VerifyEager(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    """Immediate verification even inside a batch scope, for call sites
+    where the verdict steers state (the deposit proof of possession,
+    ``specs/phase0/beacon-chain.md:1877``) rather than block validity."""
+    return _verify_or_queue("Verify", [bytes(pk)], bytes(msg), bytes(sig), eager=True)
+
+
+@only_with_bls(alt_return=True)
+def FastAggregateVerify(pks, msg: bytes, sig: bytes) -> bool:
+    return _verify_or_queue("FastAggregateVerify", [bytes(p) for p in pks],
+                            bytes(msg), bytes(sig), eager=False)
+
+
+@only_with_bls(alt_return=True)
+def AggregateVerify(pks, msgs, sig: bytes) -> bool:
+    return _call("AggregateVerify", [bytes(p) for p in pks],
+                 [bytes(m) for m in msgs], bytes(sig))
+
+
+@only_with_bls(alt_return=STUB_SIGNATURE)
+def Sign(sk: int, msg: bytes) -> bytes:
+    return _py_backend.Sign(sk, bytes(msg))
+
+
+@only_with_bls(alt_return=STUB_PUBKEY)
+def SkToPk(sk: int) -> bytes:
+    return _py_backend.SkToPk(sk)
+
+
+@only_with_bls(alt_return=STUB_SIGNATURE)
+def Aggregate(signatures) -> bytes:
+    return _py_backend.Aggregate([bytes(s) for s in signatures])
+
+
+@only_with_bls(alt_return=STUB_PUBKEY)
+def AggregatePKs(pubkeys) -> bytes:
+    return _py_backend.AggregatePKs([bytes(p) for p in pubkeys])
+
+
+@only_with_bls(alt_return=True)
+def KeyValidate(pk: bytes) -> bool:
+    return _py_backend.KeyValidate(bytes(pk))
