@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, verify a
 mainnet-shaped block, run a mainnet phase0 block through
-``state_transition``, time.
+``state_transition``, run a block's blobs through the KZG library and
+PeerDAS recovery, time.
 
     python3 chip_smoke.py [--validators N]
 
@@ -42,7 +43,25 @@ Phases, each fatal on failure (no phase's failure is caught):
    against the plain version; set-up, the cold root (K5 against
    hashlib), the transition's stages, K5 per launch and the copies are
    timed;
-7. print the ``kernels`` line (K1-K6), the card line and the result line.
+7. hold K7 ``expand_windows``, K8 ``g1_msm`` and K9 ``fr_butterfly``
+   byte-identical to their plain versions on the card and to the oracle
+   (MSMs at N = 1, 3, 8, 300 with the scalars 0, 1, r - 1, a repeated
+   base, P beside -P and the point at infinity; FFTs at n = 2, 256, 8192
+   forward, inverse and round trip against the host ``fft_field``);
+8. a block's blobs through the port's KZG library on the card
+   (``bls.use_torch()``, the real trusted setup): six blobs of 4096
+   seeded field elements, a commitment and a proof each (12 MSMs of 4096
+   points on K7/K8), ``verify_blob_kzg_proof_batch`` with one K4 launch,
+   the batch with one element changed rejected, blob 0's commitment and
+   proof equal to the oracle's Pippenger, every K7/K8/K4 call of the
+   phase held against its plain version; commit, prove and verify timed;
+9. PeerDAS: the six blobs' cells, ``recover_cells_batch`` from the same
+   64 of 128 columns of every blob (one group: 4 batched FFTs of (6, 8192)
+   on K9, every launch held against the plain version) equal to the
+   original cells; cell proofs for 8 columns x 6 blobs (MSMs of 4032
+   monomial points on K8) verified by ``verify_cell_proof_batch`` with
+   one K4 launch, a changed cell rejected; recovery and verify timed;
+10. print the ``kernels`` line (K1-K9), the card line and the result line.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
@@ -153,19 +172,26 @@ def profile_once(torch, fn):
 
 
 class StageClock:
-    """Host-side stage timer: wraps module attributes, sums their wall ms."""
+    """Host-side stage timer: wraps module attributes, sums their wall ms.
+    With ``sync`` (``torch.cuda.synchronize``) each wrapped call waits for
+    the card before and after, so a kernel wrapper's sum is the wall time
+    of its launches and their execution."""
 
-    def __init__(self):
-        self.ms, self._undo = {}, []
+    def __init__(self, sync=None):
+        self.ms, self._undo, self.sync = {}, [], sync
 
     def wrap(self, mod, name):
         fn = getattr(mod, name)
 
         def timed(*a, **kw):
+            if self.sync:
+                self.sync()
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
+                if self.sync:
+                    self.sync()
                 self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         setattr(mod, name, timed)
         self._undo.append((mod, name, fn))
@@ -634,6 +660,445 @@ def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
             "library_ms": None, "messages": m, "blocks": nb}
 
 
+# ---------------------------------------------------------------------------
+# slice 3: a block's blobs through the KZG library, PeerDAS recovery and
+# sampling
+# ---------------------------------------------------------------------------
+
+MSM_SIZES = (1, 3, 8, 300)
+FFT_SIZES = (2, 256, 8192)
+BLOBS = 6                   # MAX_BLOBS_PER_BLOCK (presets/mainnet/deneb.yaml)
+SAMPLED_COLUMNS = 8         # columns whose cell proofs are made and checked
+# host stages timed inside the batch verify of the blobs (ops/kzg.py) and
+# inside the cell proofs (ops/kzg_7594.py); none calls another
+VERIFY_HOST_STAGES = ("validate_kzg_g1", "blob_to_polynomial", "compute_challenge",
+                      "evaluate_polynomial_in_evaluation_form", "_to_g1")
+PROOF_HOST_STAGES = ("polynomial_eval_to_coeff", "evaluate_polynomialcoeff",
+                     "interpolate_polynomialcoeff", "vanishing_polynomialcoeff",
+                     "divide_polynomialcoeff")
+
+
+class CallRecorder:
+    """Wraps ``mod.name`` while active: counts its calls and keeps, per
+    call (or per argument shape with ``first_of_shape``), clones of its
+    tensor arguments before the call and of its outputs after it, so an
+    in-place kernel is caught on both sides."""
+
+    def __init__(self, torch, mod, name, first_of_shape=False):
+        self.torch, self.mod, self.name = torch, mod, name
+        self.fn = getattr(mod, name)
+        self.first_of_shape = first_of_shape
+        self.calls, self.count, self._shapes = [], 0, set()
+
+    def _clone(self, xs):
+        return tuple(x.clone() if isinstance(x, self.torch.Tensor) else x for x in xs)
+
+    def shapes(self, args):
+        return [tuple(x.shape) for x in args if isinstance(x, self.torch.Tensor)]
+
+    def __enter__(self):
+        def wrapped(*a):
+            shape = str(self.shapes(a))
+            keep = not self.first_of_shape or shape not in self._shapes
+            before = self._clone(a) if keep else None
+            out = self.fn(*a)
+            self.count += 1
+            if keep:
+                self._shapes.add(shape)
+                self.calls.append((before, self._clone(as_tuple(out))))
+            return out
+        setattr(self.mod, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+    def hold(self, plain) -> int:
+        """Fail unless ``plain`` on every kept call's arguments gives that
+        call's outputs; returns the largest word difference (0)."""
+        err = 0
+        for args, out in self.calls:
+            err = max(err, compare(self.torch, f"{self.name} at {self.shapes(args)}", out,
+                                   plain(*self._clone(args))))
+        return err
+
+
+def field_elements(tag: bytes, n: int, r: int) -> list:
+    """n seeded canonical field elements."""
+    raw = hashlib.shake_256(SEED + tag).digest(32 * n)
+    return [int.from_bytes(raw[32 * i:32 * (i + 1)], "big") % r for i in range(n)]
+
+
+def plain_ms(torch, fn) -> float:
+    """Wall ms of one call of a plain version on the card (it issues many
+    small kernels; one call is long enough to time on the host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES) -> dict:
+    """Phase 7: K7, K8 and K9 byte-identical to their plain versions on the
+    card and to the oracle on small seeded inputs; returns the largest
+    word difference of each (0)."""
+    from consensus_specs_tpu_torch.ops import fr_fft, msm
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import kzg_7594 as K7
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR, G1Point
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    r = K.BLS_MODULUS
+    base, step = (G1_GENERATOR.mult(v) for v in field_elements(b"msm-points", 2, r))
+    err = {"expand_windows": 0, "g1_msm": 0, "fr_butterfly": 0}
+    for n in msm_sizes:
+        # a repeated point, P beside -P, the point at infinity, then a walk
+        pts = [base, base, -base, G1Point.inf(), step][:n]
+        while len(pts) < n:
+            pts.append(pts[-1] + step)
+        scalars = ([0, 1, r - 1] + field_elements(b"msm-scalars" + bytes([n % 256]), n, r))[:n]
+        aff, inf = (t.to(dev) for t in C.pack_g1(pts))
+        win = msm.expand_windows(aff, inf)
+        err["expand_windows"] = max(err["expand_windows"], compare(
+            torch, f"K7 (N={n})", win, msm.expand_windows_plain(aff, inf)))
+        sc = msm.scalar_words(scalars).to(dev)
+        out = msm.msm_core(win, sc)
+        err["g1_msm"] = max(err["g1_msm"], compare(torch, f"K8 (N={n})", out,
+                                                   msm.msm_core_plain(win, sc)))
+        got = C.unpack_g1(out[0][None], out[1].reshape(1))[0]
+        check(got == K._pippenger_msm(pts, scalars), f"K8 differs from the oracle at N={n}")
+    for n in fft_sizes:
+        roots = list(K.compute_roots_of_unity(n))
+        n_rows = 2 if n > 256 else 4
+        vals = field_elements(b"fft" + n.to_bytes(4, "little"), n * n_rows, r)
+        rows = [vals[i * n:(i + 1) * n] for i in range(n_rows)]
+        rows[0][:3] = [0, 1, r - 1][:n]
+        with CallRecorder(torch, fr_fft, "fr_butterfly") as k9:
+            fwd = fr_fft.fft_batch(rows, roots, device=dev)
+            inv = fr_fft.fft_batch(rows, roots, inv=True, device=dev)
+            back = fr_fft.fft_batch(fwd, roots, inv=True, device=dev)
+        check(fwd == [K7.fft_field(row, roots) for row in rows], f"K9 forward at n={n}")
+        check(inv == [K7.fft_field(row, roots, inv=True) for row in rows], f"K9 inverse at n={n}")
+        check(back == rows, f"K9 round trip at n={n}")
+        err["fr_butterfly"] = max(err["fr_butterfly"], k9.hold(fr_fft.fr_butterfly_plain))
+    print(f"kernel checks (small inputs): K7 and K8 at N = {', '.join(map(str, msm_sizes))} "
+          f"(scalars 0, 1, r - 1; a repeated base, P with -P, the point at infinity) and "
+          f"K9 at every stage of n = {', '.join(map(str, fft_sizes))} (forward, inverse, "
+          f"round trip) byte-identical to their plain versions on the card, to the oracle's "
+          f"Pippenger and to the host fft_field (tolerance 0: integer outputs)")
+    return err
+
+
+def blob_phase(torch, dev, card, setup, n_blobs=BLOBS) -> dict:
+    """Phase 8: a block's blobs.  Commit to and prove each blob, verify
+    the batch (one K4 launch), reject an altered blob, match one
+    commitment and one proof with the oracle's Pippenger, hold every K7,
+    K8 and K4 call against its plain version, time."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_torch, msm
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops.torch_bls import pairing
+    from consensus_specs_tpu_torch.utils import bls
+    r, width = K.BLS_MODULUS, setup.FIELD_ELEMENTS_PER_BLOB
+    blobs = [b"".join(x.to_bytes(32, "big") for x in
+                      field_elements(b"blob" + bytes([i]), width, r)) for i in range(n_blobs)]
+    t0 = time.perf_counter()
+    for p in setup.g1_lagrange_brp:
+        K._to_g1(p)
+    t_dec = time.perf_counter() - t0
+    print(f"blobs: {n_blobs} of {width} field elements (MAX_BLOBS_PER_BLOCK, "
+          f"FIELD_ELEMENTS_PER_BLOB); set-up: Lagrange basis decompression {t_dec:.2f} s "
+          f"(host, once per process)")
+
+    bls.use_torch(dev)
+    commit_ms, prove_ms, cs, proofs = [], [], [], []
+    with CallRecorder(torch, msm, "expand_windows") as k7, \
+            CallRecorder(torch, msm, "msm_core") as k8, \
+            CallRecorder(torch, bls_torch, "pairing_check", first_of_shape=True) as k4:
+        _build.reset_launches()
+        for b in blobs:
+            t0 = time.perf_counter()
+            cs.append(K.blob_to_kzg_commitment(b, setup))
+            t1 = time.perf_counter()
+            proofs.append(K.compute_blob_kzg_proof(b, cs[-1], setup))
+            t2 = time.perf_counter()
+            commit_ms.append((t1 - t0) * 1e3)
+            prove_ms.append((t2 - t1) * 1e3)
+        before = dict(_build.launches)
+        clock = StageClock(sync=torch.cuda.synchronize)
+        for mod, name in ((msm, "expand_windows"), (msm, "msm_core"), (bls_torch, "pairing_check")):
+            clock.wrap(mod, name)
+        host = StageClock()
+        for name in VERIFY_HOST_STAGES:
+            host.wrap(K, name)
+        t0 = time.perf_counter()
+        ok = K.verify_blob_kzg_proof_batch(blobs, cs, proofs, setup)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        host.restore()
+        clock.restore()
+        launches = dict(_build.launches)
+        check(ok is True, "the block's blob batch must verify")
+        check(launches["pairing_check"] - before["pairing_check"] == 1,
+              f"the batch verify must make exactly one K4 launch: {launches}")
+        check(all(launches[k] > 0 for k in ("expand_windows", "g1_msm", "pairing_check")),
+              f"a kernel of the blob path was not launched: {launches}")
+        altered, off = list(blobs), 32 * (width // 2)
+        x = int.from_bytes(blobs[-1][off:off + 32], "big")
+        altered[-1] = blobs[-1][:off] + ((x + 1) % r).to_bytes(32, "big") + blobs[-1][off + 32:]
+        check(K.verify_blob_kzg_proof_batch(altered, cs, proofs, setup) is False,
+              "the batch with one blob element changed must fail")
+    device_ms = sum(clock.ms.values())
+    print(f"blob path: {n_blobs} commitments and {n_blobs} proofs, the batch verifies "
+          f"with one K4 launch, one changed element fails it; launches {launches}")
+
+    bls.use_py()
+    t0 = time.perf_counter()
+    c_or = K.blob_to_kzg_commitment(blobs[0], setup)
+    t1 = time.perf_counter()
+    p_or = K.compute_blob_kzg_proof(blobs[0], c_or, setup)
+    t2 = time.perf_counter()
+    bls.use_torch(dev)
+    check(c_or == cs[0], "the commitment differs from the oracle's Pippenger")
+    check(p_or == proofs[0], "the proof differs from the oracle's Pippenger")
+    print(f"oracle: blob 0's commitment and proof equal the host Pippenger's "
+          f"({t1 - t0:.2f} s and {t2 - t1:.2f} s of python)")
+
+    err7 = k7.hold(msm.expand_windows_plain)
+    err8 = k8.hold(msm.msm_core_plain)
+    err4 = k4.hold(pairing.pairing_check_plain)
+    print(f"check expand_windows, g1_msm, pairing_check: equal to their plain versions at "
+          f"every launch of the phase ({k7.count}, {k8.count} and {k4.count} calls; shapes "
+          f"{sorted({str(k7.shapes(a)) for a, _ in k7.calls})}, "
+          f"{sorted({str(k8.shapes(a)) for a, _ in k8.calls})})")
+    print(f"time commit per blob (host included): {', '.join(f'{v:.2f}' for v in commit_ms)} "
+          f"ms; prove per blob: {', '.join(f'{v:.2f}' for v in prove_ms)} ms on {card}")
+    print(f"time verify_blob_kzg_proof_batch ({n_blobs} blobs): {verify_ms:.2f} ms = device "
+          f"(kernel wrappers, synchronized) {device_ms:.2f} ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in clock.ms.items())
+          + f") + host {verify_ms - device_ms:.2f} on {card}")
+    print("verify_blob_kzg_proof_batch host stages (ms, wall clock): "
+          + ", ".join(f"{k} {host.ms.get(k, 0.0):.2f}" for k in VERIFY_HOST_STAGES)
+          + f"; rest of the host part {verify_ms - device_ms - sum(host.ms.values()):.2f} "
+          f"on {card}")
+    big7 = next(a for a, _ in k7.calls if a[0].shape[0] == width)
+    big8 = next(a for a, _ in k8.calls if a[0].shape[1] == width)
+    small8 = next(a for a, _ in k8.calls if a[0].shape[1] == n_blobs)
+    return {"launches": launches, "err": {"expand_windows": err7, "g1_msm": err8,
+                                          "pairing_check": err4},
+            "k7": big7, "k8": big8, "k8_small": small8, "blobs": blobs, "cs": cs,
+            "commit_ms": commit_ms, "prove_ms": prove_ms, "verify_ms": verify_ms,
+            "verify_device_ms": device_ms}
+
+
+def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) -> dict:
+    """Phase 9: PeerDAS.  The blobs' cells, recovery from half of the
+    columns (the same columns withheld from every blob: one group, 4
+    batched FFTs on K9), cell proofs of ``n_cols`` columns per blob and
+    their batch verify (one K4 launch), an altered cell rejected; every K9
+    launch of the recovery held against the plain version; timings."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.das import kernels as D
+    from consensus_specs_tpu_torch.ops import bls_torch, fr_fft, msm
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import kzg_7594 as K7
+    from consensus_specs_tpu_torch.ops.torch_bls import pairing
+    width = setup.FIELD_ELEMENTS_PER_BLOB
+    n_cells = K7.cells_per_blob(setup)
+    cell_bytes = lambda cell: b"".join(int(x).to_bytes(32, "big") for x in cell)
+    t0 = time.perf_counter()
+    cells = [K7.compute_cells(b, setup) for b in blobs]
+    t_cells = time.perf_counter() - t0
+    order = sorted(range(n_cells), key=lambda c: hashlib.sha256(SEED + b"col" + bytes([c])).digest())
+    withheld = set(order[:n_cells // 2])
+    keep = [c for c in range(n_cells) if c not in withheld]
+    requests = [(keep, [cell_bytes(cl[c]) for c in keep]) for cl in cells]
+
+    # -- stage 2: recovery ---------------------------------------------------
+    host = StageClock()
+    host.wrap(K7, "construct_vanishing_polynomial")
+    host.wrap(K, "_batch_inverse")
+    host.wrap(fr_fft, "fft_batch")
+    dev_clock = StageClock(sync=torch.cuda.synchronize)
+    dev_clock.wrap(fr_fft, "fr_butterfly")          # inside the recorder: kernel time only
+    with CallRecorder(torch, fr_fft, "fr_butterfly") as k9:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recovered = D.recover_cells_batch(requests, setup)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        rec_launches = dict(_build.launches)
+    dev_clock.restore()
+    host.restore()
+    stages = (2 * width).bit_length() - 1
+    check(all(rec == [x for cl in orig for x in cl] for rec, orig in zip(recovered, cells)),
+          "the recovered data differ from the original extended cells")
+    check(rec_launches["fr_butterfly"] == 4 * stages,
+          f"recovery of one group must make 4 x {stages} K9 launches: {rec_launches}")
+    err9 = k9.hold(fr_fft.fr_butterfly_plain)
+    k9_ms = dev_clock.ms["fr_butterfly"]
+    fft_host = host.ms["fft_batch"] - k9_ms
+    print(f"recovery: {len(blobs)} blobs from {len(keep)} of {n_cells} columns (the same "
+          f"{len(withheld)} withheld from every blob: one group) equal to their extended "
+          f"cells; {rec_launches['fr_butterfly']} K9 launches at "
+          f"{sorted({str(k9.shapes(a)) for a, _ in k9.calls})}, each equal to its plain "
+          f"version; set-up: compute_cells {t_cells:.2f} s (host)")
+    print(f"time recover_cells_batch: {recover_ms:.2f} ms = K9 (synchronized) {k9_ms:.2f} + "
+          f"fft_batch host packing {fft_host:.2f} + vanishing polynomial "
+          f"{host.ms['construct_vanishing_polynomial']:.2f} + batch inverse "
+          f"{host.ms['_batch_inverse']:.2f} + rest (shifts, products, bit reversal) "
+          f"{recover_ms - host.ms['fft_batch'] - host.ms['construct_vanishing_polynomial'] - host.ms['_batch_inverse']:.2f} on {card}")
+
+    # -- stage 3: sampling ----------------------------------------------------
+    cols = sorted(order[n_cells // 2:][:n_cols])
+    with CallRecorder(torch, msm, "expand_windows", first_of_shape=True) as k7, \
+            CallRecorder(torch, msm, "msm_core", first_of_shape=True) as k8, \
+            CallRecorder(torch, bls_torch, "pairing_check", first_of_shape=True) as k4:
+        _build.reset_launches()
+        phost = StageClock()
+        for name in PROOF_HOST_STAGES:
+            phost.wrap(K7, name)
+        phost.wrap(K, "g1_lincomb")
+        t0 = time.perf_counter()
+        row_ids, col_ids, sampled, proofs = [], [], [], []
+        for i, b in enumerate(blobs):
+            coeff = K7.polynomial_eval_to_coeff(K.blob_to_polynomial(b, width), setup)
+            for c in cols:
+                proof, ys = K7.compute_kzg_proof_multi_impl(coeff, K7.coset_for_cell(c, setup),
+                                                            setup)
+                check(ys == cells[i][c], f"cell proof evaluations differ (blob {i}, column {c})")
+                row_ids.append(i)
+                col_ids.append(c)
+                sampled.append(cell_bytes(cells[i][c]))
+                proofs.append(proof)
+        proofs_ms = (time.perf_counter() - t0) * 1e3
+        phost.restore()
+        before = dict(_build.launches)
+        clock = StageClock(sync=torch.cuda.synchronize)
+        for mod, name in ((msm, "expand_windows"), (msm, "msm_core"), (bls_torch, "pairing_check")):
+            clock.wrap(mod, name)
+        vhost = StageClock()
+        for mod, name in ((K, "validate_kzg_g1"), (D, "_cell_fields"), (D, "batch_challenge"),
+                          (K7, "fft_field"), (K, "_to_g1")):
+            vhost.wrap(mod, name)
+        t0 = time.perf_counter()
+        ok = D.verify_cell_proof_batch(cs, row_ids, col_ids, sampled, proofs, setup)
+        vcell_ms = (time.perf_counter() - t0) * 1e3
+        vhost.restore()
+        clock.restore()
+        launches = dict(_build.launches)
+        check(ok is True, "the sampled cells must verify")
+        check(launches["pairing_check"] - before["pairing_check"] == 1,
+              f"the cell batch must make exactly one K4 launch: {launches}")
+        check(all(launches[k] > 0 for k in ("expand_windows", "g1_msm", "pairing_check")),
+              f"a kernel of the sampling path was not launched: {launches}")
+        bad = list(sampled)
+        x = int.from_bytes(bad[-1][64:96], "big")
+        bad[-1] = bad[-1][:64] + ((x + 1) % K.BLS_MODULUS).to_bytes(32, "big") + bad[-1][96:]
+        check(D.verify_cell_proof_batch(cs, row_ids, col_ids, bad, proofs, setup) is False,
+              "the cell batch with one element changed must fail")
+    err7 = k7.hold(msm.expand_windows_plain)
+    err8 = k8.hold(msm.msm_core_plain)
+    err4 = k4.hold(pairing.pairing_check_plain)
+    n = len(proofs)
+    print(f"sampling: {n} cell proofs ({len(cols)} columns x {len(blobs)} blobs) verify as "
+          f"one batch with one K4 launch, one changed element fails it; launches {launches}; "
+          f"the first K7/K8/K4 call of every shape equal to its plain version "
+          f"({sorted({str(k8.shapes(a)) for a, _ in k8.calls})})")
+    print(f"time cell proofs: {proofs_ms:.2f} ms for {n} ({proofs_ms / n:.2f} each, host "
+          f"polynomial work included); verify_cell_proof_batch: {vcell_ms:.2f} ms = device "
+          f"(synchronized) {sum(clock.ms.values()):.2f} + host "
+          f"{vcell_ms - sum(clock.ms.values()):.2f} on {card}")
+    poly_ms = sum(phost.ms.get(k, 0.0) for k in PROOF_HOST_STAGES)
+    print("cell proofs by stage (ms, wall clock): "
+          + ", ".join(f"{k} {phost.ms.get(k, 0.0):.2f}" for k in PROOF_HOST_STAGES)
+          + f" (polynomial work {poly_ms:.2f}); g1_lincomb {phost.ms['g1_lincomb']:.2f} "
+          f"(decompression, packing, K7/K8); rest {proofs_ms - poly_ms - phost.ms['g1_lincomb']:.2f}"
+          f" on {card}")
+    print("verify_cell_proof_batch host stages (ms, wall clock): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in vhost.ms.items())
+          + f"; rest of the host part "
+          f"{vcell_ms - sum(clock.ms.values()) - sum(vhost.ms.values()):.2f} on {card}")
+    k8_cell = next(a for a, _ in k8.calls if a[0].shape[1] == width - K7.FIELD_ELEMENTS_PER_CELL)
+    total = {k: rec_launches[k] + launches[k] for k in launches}
+    return {"launches": total, "err": {"fr_butterfly": err9, "expand_windows": err7,
+                                       "g1_msm": err8, "pairing_check": err4},
+            "k9": k9.calls[0][0], "k8_cell": k8_cell, "recover_ms": recover_ms,
+            "k9_path_ms": k9_ms, "proofs_ms": proofs_ms, "vcell_ms": vcell_ms}
+
+
+def slice3_entries(torch, card, blob, das, err, launches) -> list:
+    """The K7, K8 and K9 entries of the ``kernels`` line, timed at the
+    path's shapes (K7 at the Lagrange basis, K8 at a commitment's MSM, K9
+    at one stage of the recovery's batched FFT), with the other shapes
+    of the path beside them."""
+    from consensus_specs_tpu_torch.ops import fr_fft, msm
+    from consensus_specs_tpu_torch.ops.torch_bls import fr as F
+    from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+
+    def fq_bound(products) -> float:
+        return products * L.IMAD_PER_FQ_MUL / IMAD_PER_S * 1e3
+
+    out = []
+    pts, inf = blob["k7"]
+    k7_ms = cuda_ms(torch, lambda: msm.expand_windows(pts, inf))
+    k7_plain = plain_ms(torch, lambda: msm.expand_windows_plain(pts, inf))
+    ops7 = fq_bound(msm.expand_windows_fq_products(inf))
+    bytes7 = (96 + msm.N_WINDOWS * 144) * pts.shape[0] / HBM_BYTES_PER_S * 1e3
+    out.append({"name": "expand_windows", "route": "cuda",
+                "source": "consensus_specs_tpu_torch/csrc/msm.cu",
+                "replaces": "consensus_specs_tpu/ops/jax_bls/msm.py:38",
+                "launches": launches["expand_windows"], "max_abs_err": err["expand_windows"],
+                "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": max(ops7, bytes7),
+                "bound_by": "operations" if ops7 >= bytes7 else "bytes", "library_ms": None,
+                "points": int(pts.shape[0])})
+    print(f"time expand_windows at N={pts.shape[0]}: {k7_ms:.3f} ms (plain {k7_plain:.1f} ms, "
+          f"bound {max(ops7, bytes7):.5f} ms: operations {ops7:.5f}, bytes {bytes7:.5f}) on {card}")
+    k8 = {}
+    for tag, (win, sc) in (("commit", blob["k8"]), ("cell", das["k8_cell"]),
+                           ("verify", blob["k8_small"])):
+        ms = cuda_ms(torch, lambda: msm.msm_core(win, sc))
+        ops = fq_bound(msm.msm_core_fq_products(win, sc))
+        byt = (win.numel() * 4 + sc.numel() * 4 + 97) / HBM_BYTES_PER_S * 1e3
+        ladder = fq_bound(msm.msm_core_ladder_fq_products(win, sc))
+        k8[tag] = (int(win.shape[1]), ms, max(ops, byt), "operations" if ops >= byt else "bytes",
+                   ladder)
+    win, sc = blob["k8"]
+    k8_plain = plain_ms(torch, lambda: msm.msm_core_plain(win, sc))
+    n, ms, bound, by, _ = k8["commit"]
+    out.append({"name": "g1_msm", "route": "cuda", "source": "consensus_specs_tpu_torch/csrc/msm.cu",
+                "replaces": "consensus_specs_tpu/ops/jax_bls/msm.py:48",
+                "launches": launches["g1_msm"], "max_abs_err": err["g1_msm"], "ms": ms,
+                "plain_ms": k8_plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "points": n, "other_shapes": {t: {"points": v[0], "ms": v[1], "bound_ms": v[2]}
+                                              for t, v in k8.items() if t != "commit"}})
+    print("time g1_msm: " + "; ".join(f"{t} N={v[0]} {v[1]:.3f} ms (bound {v[2]:.5f} ms, {v[3]}; "
+                                      f"K8's own per-lane ladders at that rate {v[4]:.5f} ms)"
+                                      for t, v in k8.items())
+          + f"; plain at N={n} {k8_plain:.1f} ms on {card}")
+    vals, tw, half = das["k9"]
+    rows, npts = vals.shape[0], vals.shape[1]
+    v = vals.clone()
+    stage_ms = cuda_ms(torch, lambda: fr_fft.fr_butterfly(v, tw, half), reps=20)
+    halves = [1 << k for k in range(npts.bit_length() - 1)]
+    batch_ms = cuda_ms(torch, lambda: [fr_fft.fr_butterfly(v, tw, h) for h in halves])
+    k9_plain = plain_ms(torch, lambda: fr_fft.fr_butterfly_plain(vals.clone(), tw, half))
+    ops9 = fr_fft.fr_butterfly_fr_products(rows, npts) * F.IMAD_PER_FR_MUL / IMAD_PER_S * 1e3
+    bytes9 = fr_fft.fr_butterfly_bytes(rows, npts) / HBM_BYTES_PER_S * 1e3
+    out.append({"name": "fr_butterfly", "route": "cuda",
+                "source": "consensus_specs_tpu_torch/csrc/fr_fft.cu",
+                "replaces": "consensus_specs_tpu/ops/jax_bls/fr_fft.py:211",
+                "launches": launches["fr_butterfly"], "max_abs_err": err["fr_butterfly"],
+                "ms": stage_ms, "plain_ms": k9_plain, "bound_ms": max(ops9, bytes9),
+                "bound_by": "operations" if ops9 >= bytes9 else "bytes", "library_ms": None,
+                "rows": rows, "n": npts, "fft_batch_ms": batch_ms})
+    print(f"time fr_butterfly per stage at ({rows}, {npts}): {stage_ms:.4f} ms (plain "
+          f"{k9_plain:.1f} ms, bound {max(ops9, bytes9):.6f} ms: bytes {bytes9:.6f}, "
+          f"operations {ops9:.6f}); per FFT batch ({len(halves)} stages) {batch_ms:.4f} ms "
+          f"on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
@@ -929,7 +1394,26 @@ def main(argv=None) -> int:
     kernels.append(k5)
     kernels.append(sha256_blocks_entry(torch, sha256, k6_args, block_launches["sha256_blocks"]))
 
-    # ---- 7. result lines ---------------------------------------------------
+    # ---- 7. K7, K8 and K9 against their plain versions and the oracle --------
+    err = slice3_kernel_checks(torch, cu)
+
+    # ---- 8. a block's blobs through the KZG library ----------------------------
+    from consensus_specs_tpu_torch.ops import kzg
+    setup = kzg.trusted_setup("mainnet")
+    blob = blob_phase(torch, cu, card, setup)
+
+    # ---- 9. PeerDAS recovery and sampling ---------------------------------------
+    das = peerdas_phase(torch, cu, card, setup, blob["blobs"], blob["cs"])
+    for k in err:
+        err[k] = max(err[k], blob["err"].get(k, 0), das["err"].get(k, 0))
+    s3_launches = {k: blob["launches"][k] + das["launches"][k] for k in blob["launches"]}
+    k4 = next(e for e in kernels if e["name"] == "pairing_check")
+    k4["max_abs_err"] = max(k4["max_abs_err"], blob["err"]["pairing_check"],
+                            das["err"]["pairing_check"])
+    k4["slice3_launches"] = s3_launches["pairing_check"]
+    kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
+
+    # ---- 10. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,13 +27,14 @@ from .ops.bls12_381 import hash_to_curve as _H
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-LIBS = ("points", "htc", "pairing", "sha256")
+LIBS = ("points", "htc", "pairing", "sha256", "msm", "fr_fft")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # kernel name -> launches on the card since the last reset (one per
 # wrapper call that launched the kernel; CPU calls do not count)
 launches = {"g1_aggregate_scale": 0, "g2_scale_sum": 0, "hash_to_g2": 0,
-            "pairing_check": 0, "hash64": 0, "sha256_blocks": 0}
+            "pairing_check": 0, "hash64": 0, "sha256_blocks": 0,
+            "expand_windows": 0, "g1_msm": 0, "fr_butterfly": 0}
 
 _lock = threading.Lock()
 _libs = {}
@@ -61,9 +62,9 @@ def device(dev=None) -> torch.device:
 # constants header, generated from the python oracle
 # ---------------------------------------------------------------------------
 
-def _words(n: int) -> str:
+def _words(n: int, k: int = 12) -> str:
     return "{" + ", ".join(f"0x{(n >> (32 * i)) & 0xFFFFFFFF:08x}u"
-                           for i in range(12)) + "}"
+                           for i in range(k)) + "}"
 
 
 def _mont(n: int) -> int:
@@ -77,8 +78,9 @@ def _fq2(name: str, x) -> str:
 
 def constants_header() -> str:
     """Every constant the kernels need, derived from the oracle modules:
-    raw words for the modulus and exponents, Montgomery form otherwise."""
-    P = _F.P
+    raw words for the moduli and exponents, Montgomery form otherwise
+    (R = 2^384 for Fq, 2^256 for Fr)."""
+    P, R = _F.P, _F.R_ORDER
     n0 = (-pow(P, -1, 1 << 32)) % (1 << 32)
     out = ["// generated by consensus_specs_tpu_torch/_build.py; do not edit",
            "#pragma once",
@@ -90,7 +92,9 @@ def constants_header() -> str:
            f"#define BLS_EXP_LEGENDRE {_words((P - 1) // 2)}",
            f"#define BLS_INV2_WORDS {_words(_mont(pow(2, -1, P)))}",
            f"#define BLS_B3_G1_WORDS {_words(_mont(12))}",
-           f"#define BLS_ABS_X 0x{-_F.X_PARAM:016x}ull"]
+           f"#define BLS_ABS_X 0x{-_F.X_PARAM:016x}ull",
+           f"#define BLS_R_WORDS {_words(R, 8)}",
+           f"#define BLS_R_N0 0x{(-pow(R, -1, 1 << 32)) % (1 << 32):08x}u"]
     return "\n".join(out) + "\n"
 
 
@@ -206,10 +210,14 @@ _SIGS = {
                       ctypes.c_int, _VP],
     "hash64": [_VP, _VP, ctypes.c_int, _VP],
     "sha256_blocks": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP],
+    "expand_windows": [_VP, _VP, _VP, ctypes.c_int, _VP],
+    "g1_msm": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
+    "fr_butterfly": [_VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
          "hash_to_g2": "htc", "pairing_check": "pairing",
-         "hash64": "sha256", "sha256_blocks": "sha256"}
+         "hash64": "sha256", "sha256_blocks": "sha256",
+         "expand_windows": "msm", "g1_msm": "msm", "fr_butterfly": "fr_fft"}
 
 
 def load(lib: str) -> ctypes.CDLL:
@@ -250,6 +258,11 @@ def to_card(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """Copy a host tensor to ``dev`` through pinned memory, without waiting
     for work already queued on the card."""
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``to_card`` for a CUDA device; a host tensor stays as it is."""
+    return to_card(t, dev) if dev.type == "cuda" else t
 
 
 def same_device(*ts) -> torch.device:

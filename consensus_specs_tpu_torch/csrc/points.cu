@@ -21,14 +21,6 @@
 #define K1_THREADS 128
 #define K2_THREADS 64
 
-template <typename F, int T>
-__device__ void block_tree_sum(Pt<F>* sh) {
-  for (int s = T / 2; s > 0; s >>= 1) {
-    if ((int)threadIdx.x < s) pt_add(sh[threadIdx.x], sh[threadIdx.x], sh[threadIdx.x + s]);
-    __syncthreads();
-  }
-}
-
 __global__ void __launch_bounds__(K1_THREADS)
 k_g1_aggregate_scale(const uint32_t* __restrict__ pk, const int32_t* __restrict__ counts,
                      const uint32_t* __restrict__ scalars, uint32_t* __restrict__ out,

@@ -141,6 +141,17 @@ DEVNI void pt_normalize(F& x, F& y, bool& inf, const Pt<F>& p) {
   fmul(y, p.y, zi);
 }
 
+#ifdef __CUDACC__
+// sum of a block's T points in shared memory into sh[0] (T a power of two)
+template <typename F, int T>
+__device__ void block_tree_sum(Pt<F>* sh) {
+  for (int s = T / 2; s > 0; s >>= 1) {
+    if ((int)threadIdx.x < s) pt_add(sh[threadIdx.x], sh[threadIdx.x], sh[threadIdx.x + s]);
+    __syncthreads();
+  }
+}
+#endif
+
 DEV void g1_load_affine(Pt<Fq>& r, const uint32_t* src) {
   fq_load(r.x, src);
   fq_load(r.y, src + NW);
@@ -153,6 +164,18 @@ DEV void g2_load_affine(Pt<Fq2>& r, const uint32_t* src) {
   fq_load(r.y.a, src + 2 * NW);
   fq_load(r.y.b, src + 3 * NW);
   f2_one(r.z);
+}
+
+DEV void g1_load_proj(Pt<Fq>& r, const uint32_t* src) {
+  fq_load(r.x, src);
+  fq_load(r.y, src + NW);
+  fq_load(r.z, src + 2 * NW);
+}
+
+DEV void g1_store_proj(uint32_t* dst, const Pt<Fq>& p) {
+  fq_store(dst, p.x);
+  fq_store(dst + NW, p.y);
+  fq_store(dst + 2 * NW, p.z);
 }
 
 DEV void f2_load(Fq2& r, const uint32_t* src) {

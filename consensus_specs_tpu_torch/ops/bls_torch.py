@@ -109,8 +109,7 @@ def _decompress_g2(data: bytes):
 _NEG_G1 = pack_g1([-G1_GENERATOR])[0]
 
 
-def _to(t, dev):
-    return _build.to_card(t, dev) if dev.type == "cuda" else t
+_to = _build.to_device
 
 
 def _stack_pk_rows(rows, dev):
@@ -239,6 +238,20 @@ def rlc_combined_check(pk_rows, msgs, sig_pts, scalars, device=None) -> bool:
     degen = torch.cat([agg_inf | hm_inf, s_inf.reshape(1)])
     offsets = torch.tensor([0, n + 1], dtype=torch.int32)
     return bool(pairing_check(p, q, degen, offsets).cpu()[0])
+
+
+def pairing_check_pairs(pairs, device=None) -> bool:
+    """Oracle (G1Point, G2Point) pairs -> prod_i e(P_i, Q_i) == 1 as ONE
+    K4 group; a pair with a point at infinity contributes 1.  The KZG
+    library's pairing checks (``ops/kzg.py``) come through here."""
+    if not pairs:
+        return True
+    dev = _build.device(device)
+    p, p_inf = pack_g1([a for a, _ in pairs])
+    q, q_inf = pack_g2([b for _, b in pairs])
+    offsets = torch.tensor([0, len(pairs)], dtype=torch.int32)
+    return bool(pairing_check(_to(p, dev), _to(q, dev), _to(p_inf | q_inf, dev),
+                              offsets).cpu()[0])
 
 
 def FastAggregateVerify(pubkeys, message: bytes, signature: bytes, device=None) -> bool:

@@ -1,0 +1,196 @@
+"""G1 multi-scalar multiplication: kernels K7 ``expand_windows`` and K8
+``g1_msm`` with their plain versions, and the host entry ``g1_msm``.
+
+Counterpart of ``consensus_specs_tpu/ops/jax_bls/msm.py``; the CUDA side
+is ``csrc/msm.cu`` over ``csrc/points.cuh``.  The MSM behind the KZG
+library's ``g1_lincomb`` (``specs/deneb/polynomial-commitments.md:268``)
+is digit-parallel, as in the JAX package:
+
+1. K7 expands each point into its 32 window multiples
+   ``W[w][i] = [2^(8w)] P_i`` (8 doublings per window), once per fixed
+   basis (the trusted setup, kept on the card by ``_setup_cache``) or
+   once per call for any other basis;
+2. K8 computes ``[d_{w,i}] W[w][i]`` for every (window, point) lane, d
+   the w-th byte of scalar i read straight from its words, sums every
+   lane and normalizes.
+
+K7 replaces ``msm.py:38`` ``_expand_windows``; K8 replaces ``msm.py:48``
+``_msm_core`` (``points.py:244`` ``g1_scalar_mul``, ``:252``
+``g1_tree_sum``, ``:306`` ``g1_normalize``) and the host digit planes of
+``:55`` ``_digits_msb_bits``.  Scalars travel as ``(N, 8)`` int32 words
+of the canonical scalar, little-endian.  The window table is projective
+``(32, N, 3, 12)`` int32 words (Montgomery form), window-major.
+"""
+import numpy as np
+import torch
+
+from .. import _build
+from ..utils.lru import LRUDict
+from .bls12_381.curve import G1Point
+from .torch_bls import convert as C
+from .torch_bls import limbs as L
+from .torch_bls import points as PT
+
+N_WINDOWS = 32           # ceil(255 / 8)
+WINDOW_BITS = 8
+SCALAR_WORDS = 8
+K8_THREADS = 128         # lanes per block of K8's first launch (csrc/msm.cu)
+
+
+def scalar_words(scalars) -> torch.Tensor:
+    """Python ints in [0, 2^256) -> (N, 8) int32 little-endian words."""
+    raw = b"".join(int(s).to_bytes(32, "little") for s in scalars)
+    w = np.frombuffer(raw, dtype="<u4").astype(np.uint32).view(np.int32)
+    return torch.from_numpy(w.reshape(len(scalars), SCALAR_WORDS).copy())
+
+
+def _digits(scalars: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 words -> (32, N) int64 bytes, window-major."""
+    w = scalars.to(torch.int64) & 0xFFFFFFFF
+    k = torch.arange(N_WINDOWS, device=w.device)
+    return ((w[:, k // 4] >> (8 * (k % 4))) & 0xFF).T
+
+
+# ---------------------------------------------------------------------------
+# K7: window multiples
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def expand_windows_plain(pts, inf):
+    """Plain PyTorch version of K7 (any device)."""
+    p = PT.from_affine(PT._G1, L.unpack(pts), inf)          # (N, 3, 24)
+    out = [p]
+    for _ in range(N_WINDOWS - 1):
+        for _ in range(WINDOW_BITS):
+            p = PT.complete_dbl(PT._G1, p)
+        out.append(p)
+    return L.pack(torch.stack(out))
+
+
+def expand_windows_fq_products(inf) -> int:
+    """Fq products K7's function needs: 31 x 8 doublings per finite point."""
+    return int((~inf).sum()) * (N_WINDOWS - 1) * WINDOW_BITS * PT.G1_DBL
+
+
+def expand_windows(pts, inf):
+    """K7.  ``pts``: (N, 2, 12) int32 affine G1 points (Montgomery words),
+    ``inf``: (N,) bool infinity flags.  Returns the (32, N, 3, 12) int32
+    projective window multiples [2^(8w)] P_i, window-major.
+
+    CUDA: one thread per point, 248 complete doublings, 32 stores.  Bound:
+    integer multiply-adds (``expand_windows_fq_products``); each point
+    is read once (96 B) and written 32 times (4,608 B)."""
+    dev = _build.same_device(pts, inf)
+    n = pts.shape[0]
+    _build.check(pts, "pts", torch.int32, (n, 2, 12))
+    _build.check(inf, "inf", torch.bool, (n,))
+    if dev.type == "cpu":
+        return expand_windows_plain(pts, inf)
+    out = torch.empty((N_WINDOWS, n, 3, 12), dtype=torch.int32, device=dev)
+    if n:
+        _build.launch("expand_windows", pts, inf, out, n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8: digit lanes, sum, normalize
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def msm_core_plain(windows, scalars):
+    """Plain PyTorch version of K8 (any device)."""
+    n = windows.shape[1]
+    pts = L.unpack(windows).reshape(N_WINDOWS * n, 3, L.NLIMB)
+    d = _digits(scalars).reshape(-1, 1)
+    bits = (d >> torch.arange(WINDOW_BITS - 1, -1, -1, device=d.device)) & 1
+    q = PT.scalar_mul(PT._G1, pts, bits.bool())
+    out, inf = PT.normalize(PT._G1, PT.tree_sum(PT._G1, q, 0))
+    return L.pack(out), inf
+
+
+def msm_core_fq_products(windows, scalars) -> int:
+    """Fq products K8's function needs on these inputs, by the bucket
+    method over the expanded table: every lane with a non-zero digit and
+    a finite window point joins its digit's bucket (an addition for each
+    but the first of a bucket); the filled buckets, digits d_1 > ... > d_D,
+    combine as sum_j (d_j - d_{j+1}) S_j over their running sums S_j
+    (2 (D - 1) additions and a ladder for every gap above 1, d_{D+1} = 0);
+    an inversion and two products make the sum affine."""
+    finite = (windows[0, :, 2] != 0).any(dim=-1).cpu()
+    d = _digits(scalars).cpu()[:, finite]
+    live = d[d != 0]
+    digits = sorted(set(live.tolist()), reverse=True)
+    gaps = [a - b for a, b in zip(digits, digits[1:] + [0])]
+    adds = len(live) - len(digits) + 2 * max(len(digits) - 1, 0)
+    n = adds * PT.G1_ADD + sum(PT._ladder_fq_products(g, PT.G1_DBL, PT.G1_ADD) for g in gaps)
+    return n + L.INV_MULS + 2
+
+
+def msm_core_ladder_fq_products(windows, scalars) -> int:
+    """Fq products K8's design spends on these inputs (not its bound): per
+    lane with a non-zero digit and a finite window point, the digit's
+    ladder (base projective: full additions); the additions joining those
+    lanes; an inversion and two products to make the sum affine."""
+    finite = (windows[0, :, 2] != 0).any(dim=-1).cpu()
+    d = _digits(scalars).cpu()[:, finite]
+    live = d[d != 0].tolist()
+    n = sum(PT._ladder_fq_products(k, PT.G1_DBL, PT.G1_ADD) for k in live)
+    return n + max(len(live) - 1, 0) * PT.G1_ADD + L.INV_MULS + 2
+
+
+def msm_core(windows, scalars):
+    """K8.  ``windows``: (32, N, 3, 12) int32 projective window multiples
+    (K7's output), ``scalars``: (N, 8) int32 little-endian words of the
+    canonical scalars.  Returns the affine sum_i [k_i] P_i as (2, 12)
+    int32 and its infinity flag (bool, shape ()).
+
+    CUDA: two launches.  One thread per (window, point) lane runs its
+    digit's double-and-add and each block of 128 lanes sums its results
+    in a shared-memory tree; one block then sums the block partials and
+    inverts Z.  Bound: integer multiply-adds (``msm_core_fq_products``)."""
+    dev = _build.same_device(windows, scalars)
+    n = windows.shape[1]
+    _build.check(windows, "windows", torch.int32, (N_WINDOWS, n, 3, 12))
+    _build.check(scalars, "scalars", torch.int32, (n, SCALAR_WORDS))
+    if n == 0:
+        raise ValueError("msm_core: empty basis")
+    if dev.type == "cpu":
+        return msm_core_plain(windows, scalars)
+    blocks = -(-N_WINDOWS * n // K8_THREADS)
+    partial = torch.empty((blocks, 3, 12), dtype=torch.int32, device=dev)
+    out = torch.empty((2, 12), dtype=torch.int32, device=dev)
+    inf = torch.empty((), dtype=torch.bool, device=dev)
+    _build.launch("g1_msm", windows, scalars, partial, out, inf, n)
+    return out, inf
+
+
+# ---------------------------------------------------------------------------
+# host entry
+# ---------------------------------------------------------------------------
+
+# (cache key, device) -> window table of a fixed basis, on that device;
+# 18.9 MB per 4096-point basis on the card
+_setup_cache = LRUDict(8)
+
+
+def g1_msm(points, scalars, cache_key=None, device=None) -> G1Point:
+    """sum_i [scalars_i] points_i over oracle ``G1Point``s, scalars in
+    [0, r), on ``device`` (None: the card; "cpu": the plain versions).
+
+    ``cache_key``: a hashable identity of a fixed basis (the caller keys
+    it by content) whose window table is kept on ``device`` across
+    calls, so K7 runs once per basis."""
+    if len(points) != len(scalars):
+        raise ValueError("g1_msm: ragged inputs")
+    if not points:
+        return G1Point.inf()
+    dev = _build.device(device)
+    key = (cache_key, str(dev))
+    windows = _setup_cache.get(key) if cache_key is not None else None
+    if windows is None:
+        aff, inf = C.pack_g1(points)
+        windows = expand_windows(_build.to_device(aff, dev), _build.to_device(inf, dev))
+        if cache_key is not None:
+            _setup_cache[key] = windows
+    out, inf = msm_core(windows, _build.to_device(scalar_words(scalars), dev))
+    return C.unpack_g1(out[None], inf.reshape(1))[0]

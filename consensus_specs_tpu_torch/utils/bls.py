@@ -62,6 +62,11 @@ def backend_name() -> str:
     return _backend_name
 
 
+def backend_device():
+    """The torch backend's device (None under the py backend)."""
+    return _device
+
+
 def _call(fn, *args):
     if _backend_name == "torch":
         return getattr(_backend, fn)(*args, device=_device)

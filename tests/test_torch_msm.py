@@ -1,0 +1,196 @@
+"""K7 (expand_windows) and K8 (g1_msm), plain versions, against the JAX
+package's ``_expand_windows`` and ``_msm_core`` (through its ``g1_msm``)
+(``consensus_specs_tpu/ops/jax_bls/msm.py``) and the oracle.  Exact:
+points compare as compressed bytes (the window tables are projective, so
+each entry is normalized first).  The JAX programs run in the package's
+numpy-kernel mode in one subprocess, started first so both sides compute
+at once.
+
+Edge cases at N = 1, 3, 8: scalars 0, 1 and r - 1; bases with a repeated
+point, a point beside its negation, and the point at infinity."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from consensus_specs_tpu.ops.bls12_381.curve import G1_GENERATOR as JG1, G1Point as JG1Point
+from consensus_specs_tpu_torch import _build
+from consensus_specs_tpu_torch.ops import msm
+from consensus_specs_tpu_torch.ops.bls12_381.curve import G1Point, g1_from_compressed
+from consensus_specs_tpu_torch.ops.bls12_381.fields import Fq, R_ORDER
+from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+from tests._torch_port import finish, one_torch_thread, start_numpy_kernels  # noqa: F401
+
+SEED = 38
+SIZES = (1, 3, 8)
+
+_JAX_MSM = r"""
+import json, sys
+import numpy as np
+from consensus_specs_tpu.ops.jax_bls.backend import NUMPY_KERNELS
+assert NUMPY_KERNELS
+from consensus_specs_tpu.ops.jax_bls import msm as M
+from consensus_specs_tpu.ops.jax_bls import points as PT
+from consensus_specs_tpu.ops.bls12_381.curve import g1_from_compressed
+out = {}
+for n, case in json.loads(sys.argv[1]).items():
+    pts = [g1_from_compressed(bytes.fromhex(p)) for p in case["points"]]
+    scalars = [int(s) for s in case["scalars"]]
+    stacked = M._expand_windows(PT.g1_pack(pts))
+    # g1_msm is _msm_core over these windows and the scalars' digit planes:
+    # seeding its setup cache runs that core once, not a second expansion
+    M._setup_cache._cache[("case", n)] = M._flatten_windows(stacked)
+    core = M.g1_msm(pts, scalars, cache_key=("case", n))
+    out[n] = {"windows": [np.asarray(a).tolist() for a in stacked],
+              "msm": core.to_compressed().hex()}
+print("RESULT=" + json.dumps(out))
+"""
+
+
+def _case(n: int, rng):
+    p = JG1.mult(int(rng.integers(1, 2**62)))
+    q = JG1.mult(int(rng.integers(1, 2**62)))
+    pts = [p, q, p, -p, JG1Point.inf(), JG1, q.mult(5), JG1.mult(77)][:n]
+    scalars = [R_ORDER - 1, 0, 1, int.from_bytes(rng.bytes(32), "big") % R_ORDER,
+               12345, 2**255 % R_ORDER, R_ORDER - 2, 255][:n]
+    return pts, scalars
+
+
+@pytest.fixture(scope="module")
+def case():
+    rng = np.random.default_rng(SEED)
+    cases = {n: _case(n, rng) for n in SIZES}
+    arg = {str(n): {"points": [p.to_compressed().hex() for p in pts],
+                    "scalars": [str(s) for s in sc]} for n, (pts, sc) in cases.items()}
+    proc = start_numpy_kernels(_JAX_MSM, json.dumps(arg))
+    ours = {}
+    for n, (pts, sc) in cases.items():
+        port_pts = [g1_from_compressed(p.to_compressed()) for p in pts]
+        aff, inf = C.pack_g1(port_pts)
+        windows = msm.expand_windows(aff, inf)
+        ours[n] = {"pts": port_pts, "scalars": sc, "windows": windows,
+                   "msm": msm.g1_msm(port_pts, sc, device="cpu")}
+    out = finish(proc)
+    theirs = json.loads(out.split("RESULT=", 1)[1])
+    return ours, {int(k): v for k, v in theirs.items()}
+
+
+def _affine(words: torch.Tensor) -> list:
+    """(..., 3, 12) projective words -> compressed affine points."""
+    flat = L.ints_from_words(words.reshape(-1, 12))
+    out = []
+    for i in range(0, len(flat), 3):
+        x, y, z = flat[i:i + 3]
+        if z == 0:
+            out.append(G1Point.inf().to_compressed())
+            continue
+        zi = pow(z, -1, L.P)
+        out.append(G1Point(Fq(x * zi % L.P), Fq(y * zi % L.P)).to_compressed())
+    return out
+
+
+def _jax_windows(stacked) -> torch.Tensor:
+    """The JAX (X, Y, Z) (32, N, 24) limb lists -> (32, N, 3, 12) words."""
+    return C.from_jax_g1([np.asarray(c, dtype=np.uint32) for c in stacked])
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_expand_windows_plain_matches_jax(case, n):
+    ours, theirs = case
+    assert ours[n]["windows"].shape == (msm.N_WINDOWS, n, 3, 12)
+    assert _affine(ours[n]["windows"]) == _affine(_jax_windows(theirs[n]["windows"]))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_expand_windows_plain_matches_oracle(case, n):
+    ours, _ = case
+    pts, want = list(ours[n]["pts"]), []
+    for _ in range(msm.N_WINDOWS):
+        want += [p.to_compressed() for p in pts]
+        for _ in range(msm.WINDOW_BITS):
+            pts = [p.double() for p in pts]
+    assert _affine(ours[n]["windows"]) == want
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_msm_core_plain_matches_jax_on_its_windows(case, n):
+    """K8's plain version on the JAX program's own window table and the
+    same scalars gives the JAX ``_msm_core``'s point."""
+    ours, theirs = case
+    out, inf = msm.msm_core(_jax_windows(theirs[n]["windows"]),
+                            msm.scalar_words(ours[n]["scalars"]))
+    got = C.unpack_g1(out[None], inf.reshape(1))[0].to_compressed()
+    assert got.hex() == theirs[n]["msm"]
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_g1_msm_matches_jax_and_oracle(case, n):
+    ours, theirs = case
+    want = G1Point.inf()
+    for p, s in zip(ours[n]["pts"], ours[n]["scalars"]):
+        want = want + p.mult(s)
+    got = ours[n]["msm"].to_compressed()
+    assert got == want.to_compressed()
+    assert got.hex() == theirs[n]["msm"]
+
+
+def test_identity_and_cancellation():
+    """An all-zero scalar vector and P + (-P) both give the identity."""
+    p = g1_from_compressed(JG1.mult(9).to_compressed())
+    assert msm.g1_msm([p, p], [0, 0], device="cpu").infinity
+    assert msm.g1_msm([p, -p], [3, 3], device="cpu").infinity
+    assert msm.g1_msm([], [], device="cpu").infinity
+
+
+_ADD, _DBL, _AFFINE = 14, 9, L.INV_MULS + 2
+
+
+@pytest.mark.parametrize("scalars, finite, want", [
+    # digits 3 and 1 in two buckets (the infinite third point's 7 drops):
+    # 2 combining additions and one doubling for the gap of 2
+    ([1, 3, 7], [True, True, False], 2 * _ADD + _DBL + _AFFINE),
+    # three lanes of digit 5 in one bucket: 2 additions, then [5] S_1
+    ([5, 5 + 5 * 256], [True, True], 2 * _ADD + 2 * _DBL + _ADD + _AFFINE),
+    ([0, 0], [True, True], _AFFINE),
+])
+def test_msm_bound_counts_the_bucket_method(scalars, finite, want):
+    """K8's bound counts what the function needs (buckets over the
+    expanded table), not the ladder per lane that K8 itself runs."""
+    win = torch.zeros((32, len(scalars), 3, 12), dtype=torch.int32)
+    win[:, torch.tensor(finite), 2, 0] = 1
+    sc = msm.scalar_words(scalars)
+    assert msm.msm_core_fq_products(win, sc) == want
+    assert msm.msm_core_ladder_fq_products(win, sc) >= want
+
+
+def _k_calls():
+    pts = torch.zeros((2, 2, 12), dtype=torch.int32)
+    inf = torch.zeros((2,), dtype=torch.bool)
+    win = torch.zeros((32, 2, 3, 12), dtype=torch.int32)
+    sc = torch.zeros((2, 8), dtype=torch.int32)
+    return [lambda: msm.expand_windows(pts, inf), lambda: msm.msm_core(win, sc)]
+
+
+@pytest.mark.parametrize("k", range(2))
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch, k):
+    def no_plain(*a, **kw):
+        raise AssertionError("plain version used for CUDA tensors")
+    monkeypatch.setattr(msm, "expand_windows_plain", no_plain)
+    monkeypatch.setattr(msm, "msm_core_plain", no_plain)
+    monkeypatch.setattr(_build, "same_device", lambda *t: torch.device("cuda"))
+    with pytest.raises((RuntimeError, AssertionError)) as exc:
+        _k_calls()[k]()
+    assert "plain version used" not in str(exc.value)
+
+
+@pytest.mark.parametrize("k", range(3))
+def test_wrappers_validate_arguments(k):
+    with pytest.raises((TypeError, ValueError)):
+        [lambda: msm.expand_windows(torch.zeros((2, 2, 12), dtype=torch.int64),
+                                    torch.zeros((2,), dtype=torch.bool)),
+         lambda: msm.msm_core(torch.zeros((31, 2, 3, 12), dtype=torch.int32),
+                              torch.zeros((2, 8), dtype=torch.int32)),
+         lambda: msm.msm_core(torch.zeros((32, 2, 3, 12), dtype=torch.int32),
+                              torch.zeros((3, 8), dtype=torch.int32))][k]()
