@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, verify a
 mainnet-shaped block, run a mainnet phase0 block through
 ``state_transition``, run a block's blobs through the KZG library and
-PeerDAS recovery, time.
+PeerDAS recovery, run a mainnet phase0 epoch transition, time.
 
     python3 chip_smoke.py [--validators N]
 
@@ -61,14 +61,32 @@ Phases, each fatal on failure (no phase's failure is caught):
    original cells; cell proofs for 8 columns x 6 blobs (MSMs of 4032
    monomial points on K8) verified by ``verify_cell_proof_batch`` with
    one K4 launch, a changed cell rejected; recovery and verify timed;
-10. print the ``kernels`` line (K1-K9), the card line and the result line.
+10. a mainnet phase0 epoch transition through the port's
+   ``process_slots`` with the epoch engine on the card
+   (``epoch_kernels.use_vectorized()``): K10 ``phase0_deltas``, K11
+   ``effective_balance`` and K12 ``slashings`` held byte-identical to
+   their plain versions on seeded edge columns; a ``BeaconState`` of 2^20
+   validators (``--validators``) at slot 223 with the registry edges of
+   ``tests/test_epoch_vectorized.py`` scattered and the 2048 committees
+   of epoch 5 in ``previous_epoch_attestations`` (all bits set; no
+   signatures: epoch processing checks none), run once finalized at
+   epoch 4 and once at epoch 0 (an inactivity leak).  Each run launches
+   K10-K12, commits 4 sub-transitions on the engine with no loop run and
+   no guard trip, copies balances and effective balances once each way,
+   ends at the root the plain versions give on a ``fork_state`` copy and
+   at the hashlib root of a fresh deserialization, and every K10-K12 call
+   is held against its plain version; at 4,096 validators the spec loops
+   and the engine give identical roots, leaking and not.  Stages, copies
+   and K10-K12 per launch (CUDA events, beside bounds and plain versions)
+   are timed;
+11. print the ``kernels`` line (K1-K12), the card line and the result line.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
 KeyValidate (decompression and subgroup check, ~31 ms of python per key,
 paid once per registry key, not per block) dominates set-up otherwise;
-the 2^20 validators of phase 6 cycle over those keys.  The device work
-per block does not depend on the number of distinct keys.
+the 2^20 validators of phases 6 and 10 cycle over those keys.  The device
+work per block does not depend on the number of distinct keys.
 """
 import argparse
 import hashlib
@@ -144,6 +162,23 @@ def cuda_ms(torch, fn, reps: int = 3) -> float:
     fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def queued_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of ``fn`` with the launches queued ahead: the card
+    first spins (``torch.cuda._sleep``) while the host enqueues every
+    call, so the events time the kernels back to back and not the host's
+    launch overhead (which is longer than a short kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     e0.record()
     for _ in range(reps):
         fn()
@@ -264,30 +299,6 @@ def sha_kernel_checks(torch, cu, sha256) -> dict:
     return {"sha256_blocks": k6}
 
 
-class K5Recorder:
-    """Wraps ``sha256.hash64`` while active: counts launches by row count
-    and keeps the rows of the first launch of every row count (or of
-    every launch), so each can be held against the plain version."""
-
-    def __init__(self, sha256):
-        self.mod, self.fn = sha256, sha256.hash64
-        self.rows, self.count = [], {}
-        self.keep_all = False
-
-    def __enter__(self):
-        def wrapped(rows):
-            n = rows.shape[0]
-            if self.keep_all or n not in self.count:
-                self.rows.append(rows)
-            self.count[n] = self.count.get(n, 0) + 1
-            return self.fn(rows)
-        self.mod.hash64 = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.hash64 = self.fn
-
-
 class HasherClock:
     """Wall ms spent inside the merkle engine's installed batched hasher
     (staging copy, H2D, K5, D2H), both entry points."""
@@ -333,10 +344,11 @@ def hashlib_root(ssz, merkle, typ, value) -> tuple:
     return root, t1 - t0, time.perf_counter() - t1
 
 
-def build_registry_state(spec, ssz, np, pks, n: int):
+def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
     """A mainnet ``BeaconState`` at slot 0 with ``n`` active validators at
     32 ETH, validator i keyed by registry key i mod len(pks).  The
-    registry and balances are built as numpy SSZ buffers and
+    registry and balances are built as numpy SSZ buffers (``scatter(rec,
+    bal)`` may edit the (n, 121) record bytes and the balances first) and
     deserialized; nothing is hashed."""
     from consensus_specs_tpu_torch.utils.hash_function import hash as sha
     far = 2**64 - 1
@@ -364,8 +376,10 @@ def build_registry_state(spec, ssz, np, pks, n: int):
         eth1_deposit_index=n,
         randao_mixes=[block_hash] * spec.EPOCHS_PER_HISTORICAL_VECTOR,
     )
-    state.validators = ssz.deserialize(type(state.validators), rec.tobytes())
     bal = np.full(n, spec.MAX_EFFECTIVE_BALANCE, dtype="<u8")
+    if scatter is not None:
+        scatter(rec, bal)
+    state.validators = ssz.deserialize(type(state.validators), rec.tobytes())
     state.balances = ssz.deserialize(type(state.balances), bal.tobytes())
     return state
 
@@ -397,7 +411,8 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     # -- the cold root: K5 against hashlib ------------------------------------
     merkle.reset_stats()
     torch.cuda.synchronize()
-    with K5Recorder(sha256) as cold, HasherClock(merkle) as hclock:
+    with CallRecorder(torch, sha256, "hash64", first_of_shape=True) as cold, \
+            HasherClock(merkle) as hclock:
         t0 = time.perf_counter()
         root_k5 = bytes(ssz.hash_tree_root(state))
         torch.cuda.synchronize()
@@ -406,7 +421,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     root_hl, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, state)
     check(root_k5 == root_hl, "the cold root on K5 differs from the hashlib root")
     print(f"cold root: {root_k5.hex()} equal on K5 and hashlib; K5 path {t_cold:.3f} s "
-          f"(in the batched hasher {hclock.ms / 1e3:.3f} s; {sum(cold.count.values())} "
+          f"(in the batched hasher {hclock.ms / 1e3:.3f} s; {cold.count} "
           f"launches), hashlib {t_hl:.3f} s (+ {t_ser:.2f} s serialize/deserialize); "
           f"pairs by K5 {cold_stats['pairs_batched']}, by hashlib "
           f"{cold_stats['pairs_hashlib']} on {card}")
@@ -485,8 +500,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     bls.clear_verify_memo()
     merkle.reset_stats()
     torch.cuda.synchronize()
-    with K5Recorder(sha256) as rec:
-        rec.keep_all = True
+    with CallRecorder(torch, sha256, "hash64") as rec:
         _build.reset_launches()
         t0 = time.perf_counter()
         with bls.scoped_batch(bls.DeferredBatch()) as batch:
@@ -511,7 +525,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
           f"slot) + att_prep {ms['prepare_block_attestations']:.2f} + flush "
           f"{ms['flush']:.2f} + rest of process_block {block_rest:.2f} + state-root "
           f"check and block signature {root_ms:.2f}; K5 launches "
-          f"{sum(rec.count.values())} at rows {sorted(rec.count)}; pairs by K5 "
+          f"{rec.count} at rows {sorted({a[0].shape[0] for a, _ in rec.calls})}; pairs by K5 "
           f"{tr_stats['pairs_batched']}, by hashlib {tr_stats['pairs_hashlib']} on {card}")
     print(f"flush host stages (ms, wall clock): _decompress_g2 {ms['_decompress_g2']:.2f} "
           f"({len(atts) + 2} new signatures), _stack_pk_rows {ms['_stack_pk_rows']:.2f}, "
@@ -573,16 +587,15 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
 
     # -- K5 at the transition's shapes, the cold root's largest launch and one
     # launch per level; timings ------------------------------------------------------
-    fn, err = rec.fn, 0
-    held = rec.rows + cold.rows
-    for rows in held:
-        err = max(err, compare(torch, f"K5 (n={rows.shape[0]})", fn(rows),
-                               sha256.hash64_plain(rows)))
-    big = max(cold.rows, key=lambda r: r.shape[0])
+    fn = rec.fn
+    err = max(rec.hold(sha256.hash64_plain), cold.hold(sha256.hash64_plain))
+    rec_rows = [a[0] for a, _ in rec.calls]
+    cold_rows = [a[0] for a, _ in cold.calls]
+    big = max(cold_rows, key=lambda r: r.shape[0])
     print(f"check hash64: equal to its plain version at every transition launch "
-          f"{[r.shape[0] for r in rec.rows]} and at the cold root's first launch of every "
-          f"row count ({len(cold.rows)} shapes, largest {big.shape[0]})")
-    shape = max(rec.rows, key=lambda r: r.shape[0])
+          f"{[r.shape[0] for r in rec_rows]} and at the cold root's first launch of every "
+          f"row count ({len(cold_rows)} shapes, largest {big.shape[0]})")
+    shape = max(rec_rows, key=lambda r: r.shape[0])
     n = shape.shape[0]
     k_ms = cuda_ms(torch, lambda: fn(shape))
     torch.cuda.synchronize()
@@ -592,8 +605,9 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     p_ms = (time.perf_counter() - t0) * 1e3
     big_ms = cuda_ms(torch, lambda: fn(big))
     cold_kernel_ms = 0.0
-    for rows in cold.rows:
-        cold_kernel_ms += cuda_ms(torch, lambda: fn(rows)) * cold.count[rows.shape[0]]
+    for rows in cold_rows:
+        count = cold.by_shape[str([tuple(rows.shape)])]
+        cold_kernel_ms += cuda_ms(torch, lambda: fn(rows)) * count
 
     def bound(m):
         ops = sha256.hash64_int_ops(m) / INT32_OPS_PER_S
@@ -621,7 +635,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
           f"{big_ms:.3f} ms (bound {big_b:.4f} ms by operations {big_ops:.4f} ms, bytes "
           f"{96 * big.shape[0] / HBM_BYTES_PER_S * 1e3:.4f} ms; hashlib on the host "
           f"{hl_big_ms:.1f} ms); H2D {h2d_ms:.3f} ms, D2H {d2h_ms:.3f} ms; all "
-          f"{sum(cold.count.values())} cold-root launches {cold_kernel_ms:.3f} ms of "
+          f"{cold.count} cold-root launches {cold_kernel_ms:.3f} ms of "
           f"kernel time on {card}")
     return {"name": "hash64", "route": "cuda",
             "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
@@ -679,16 +693,17 @@ PROOF_HOST_STAGES = ("polynomial_eval_to_coeff", "evaluate_polynomialcoeff",
 
 
 class CallRecorder:
-    """Wraps ``mod.name`` while active: counts its calls and keeps, per
-    call (or per argument shape with ``first_of_shape``), clones of its
-    tensor arguments before the call and of its outputs after it, so an
-    in-place kernel is caught on both sides."""
+    """Wraps ``mod.name`` while active: counts its calls (``count``, and
+    per argument shape ``by_shape``) and keeps, per call (or per argument
+    shape with ``first_of_shape``), clones of its tensor arguments before
+    the call and of its outputs after it, so an in-place kernel is caught
+    on both sides."""
 
     def __init__(self, torch, mod, name, first_of_shape=False):
         self.torch, self.mod, self.name = torch, mod, name
         self.fn = getattr(mod, name)
         self.first_of_shape = first_of_shape
-        self.calls, self.count, self._shapes = [], 0, set()
+        self.calls, self.count, self.by_shape = [], 0, {}
 
     def _clone(self, xs):
         return tuple(x.clone() if isinstance(x, self.torch.Tensor) else x for x in xs)
@@ -699,12 +714,12 @@ class CallRecorder:
     def __enter__(self):
         def wrapped(*a):
             shape = str(self.shapes(a))
-            keep = not self.first_of_shape or shape not in self._shapes
+            keep = not self.first_of_shape or shape not in self.by_shape
             before = self._clone(a) if keep else None
             out = self.fn(*a)
             self.count += 1
+            self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
             if keep:
-                self._shapes.add(shape)
                 self.calls.append((before, self._clone(as_tuple(out))))
             return out
         setattr(self.mod, self.name, wrapped)
@@ -1099,6 +1114,414 @@ def slice3_entries(torch, card, blob, das, err, launches) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 4: a mainnet phase0 epoch transition
+# ---------------------------------------------------------------------------
+
+EPOCH_SLOT = 32 * 7 - 1     # the next slot crosses into epoch 7
+REDUCED_VALIDATORS = 4096   # the registry at which the spec loops still finish
+EPOCH_KERNELS = ("phase0_deltas", "effective_balance", "slashings")
+EPOCH_REPLACES = {
+    "phase0_deltas": "consensus_specs_tpu/ops/epoch_kernels.py:205",
+    "effective_balance": "consensus_specs_tpu/ops/epoch_kernels.py:240",
+    "slashings": "consensus_specs_tpu/ops/epoch_kernels.py:252",
+}
+SUB_TRANSITIONS = ("process_rewards_and_penalties", "process_registry_updates",
+                   "process_slashings", "process_effective_balance_updates")
+
+
+def epoch_plain(ek) -> dict:
+    return {"phase0_deltas": ek.phase0_deltas_plain,
+            "effective_balance": ek.effective_balance_plain,
+            "slashings": ek.slashings_plain}
+
+
+def epoch_kernel_checks(torch, dev, n_lanes: int) -> int:
+    """K10-K12 byte-identical to their plain versions on the card, on
+    seeded columns with the edge values (zero balances, penalties above
+    balance plus reward, balances at the hysteresis thresholds, lane
+    products just under 2^63), at 1, 1000 and ``n_lanes`` lanes, leaking
+    and not.  Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    gwei, err = 10**9, 0
+    for n in (1, 1000, n_lanes):
+        rng = np.random.default_rng(n)
+        bal = rng.integers(0, 40 * gwei, n, dtype=np.int64)
+        eff = rng.integers(0, 33, n, dtype=np.int64) * gwei
+        incl = rng.integers(0, 2**25, n, dtype=np.int64)
+        elig, target = rng.random(n) < 0.8, rng.random(n) < 0.1
+        att = rng.random((3, n)) < 0.6
+        k = min(n, 8)
+        bal[:k] = 0
+        eff[:k] = 32 * gwei
+        elig[:k], att[:, :k], incl[:k], target[:k] = True, False, 0, True
+        if n > 16:
+            eff[8:12] = 16 * gwei
+            bal[8:10] = 16 * gwei - gwei // 4          # at the downward threshold
+            bal[10:12] = 16 * gwei + 5 * gwei // 4     # at the upward threshold
+            bal[12] = 2**63 - 1 - 2**25                # balance + reward just under 2^63
+        t = {name: torch.from_numpy(a).to(dev) for name, a in (
+            ("bal", bal), ("eff", eff), ("incl", incl), ("elig", elig), ("target", target),
+            ("att", att))}
+        total = max(gwei, int(eff.sum()))
+        for leak in (False, True):
+            s = ek.Phase0Scalars(64, int(np.sqrt(total)), 4,
+                                 tuple(max(1, int(eff[a].sum()) // gwei) for a in att),
+                                 total // gwei, leak, 8, 5 if leak else 1, 2**26)
+            args = (t["eff"], t["incl"], t["bal"], t["elig"], t["att"], s)
+            err = max(err, compare(torch, f"K10 (n={n}, leak={leak})", ek.phase0_deltas(*args),
+                                   ek.phase0_deltas_plain(*args)))
+        args = (t["bal"], t["eff"], gwei, gwei // 4, 5 * gwei // 4, 32 * gwei)
+        err = max(err, compare(torch, f"K11 (n={n})", ek.effective_balance(*args),
+                               ek.effective_balance_plain(*args)))
+        args = (t["eff"], t["bal"], t["target"], gwei, total // 2, total)
+        err = max(err, compare(torch, f"K12 (n={n})", ek.slashings(*args),
+                               ek.slashings_plain(*args)))
+    torch.cuda.synchronize()
+    print(f"kernel checks (small inputs): K10-K12 at n = 1, 1000, {n_lanes} (zero balances, "
+          f"penalties above balance plus reward, hysteresis thresholds, lane sums just under "
+          f"2^63; leaking and not) byte-identical to their plain versions on the card "
+          f"(tolerance 0: integers)")
+    return err
+
+
+def epoch_scatter(spec, np, n: int, seed: int):
+    """The registry edges of ``tests/test_epoch_vectorized.py``'s
+    ``_scatter_registry_edges(preserve_active=True)``, seeded, written
+    into the (n, 121) record bytes (pubkey 0:48, credentials 48:80,
+    effective balance 80:88, slashed 88, eligibility 89:97, activation
+    97:105, exit 105:113, withdrawable 113:121) and the balances."""
+    current, prev = EPOCH_SLOT // 32, EPOCH_SLOT // 32 - 1
+    target = current + spec.EPOCHS_PER_SLASHINGS_VECTOR // 2
+    step = spec.EFFECTIVE_BALANCE_INCREMENT // spec.HYSTERESIS_QUOTIENT
+
+    def scatter(rec, bal):
+        rng = np.random.default_rng(seed)
+        roll = rng.random(n)
+        u64 = lambda lo: rec[:, lo:lo + 8].copy().view("<u8").reshape(n)  # noqa: E731
+        slashed = roll < 0.16
+        rec[slashed, 88] = 1
+        wd = u64(113)
+        draw = lambda lo, hi: rng.integers(lo, hi, n).astype(np.uint64)  # noqa: E731
+        wd[roll < 0.08] = np.uint64(prev + 2) + draw(0, 4)[roll < 0.08]
+        wd[(roll >= 0.08) & (roll < 0.12)] = target
+        wd[(roll >= 0.12) & (roll < 0.16)] = prev + 1
+        exiting = (roll >= 0.16) & (roll < 0.22)
+        ext = u64(105)
+        ext[exiting] = np.uint64(current) + draw(1, 4)[exiting]
+        wd[exiting] = ext[exiting] + draw(1, 5)[exiting]
+        rec[:, 105:113] = ext.astype("<u8").view(np.uint8).reshape(n, 8)
+        rec[:, 113:121] = wd.astype("<u8").view(np.uint8).reshape(n, 8)
+        eff = u64(80)
+        eff[(roll >= 0.22) & (roll < 0.28)] = spec.config.EJECTION_BALANCE
+        rec[:, 80:88] = eff.astype("<u8").view(np.uint8).reshape(n, 8)
+        moved = rng.random(n) < 0.6
+        delta = rng.integers(-3, 4, n) * step
+        bal[moved] = np.maximum(0, bal[moved].astype(np.int64) + delta[moved])
+        scatter.slashed_total = int(eff[slashed].sum())
+    return scatter
+
+
+def epoch_state(spec, ssz, np, pks, n: int, seed: int):
+    """A mainnet phase0 ``BeaconState`` of ``n`` validators at slot
+    ``EPOCH_SLOT`` with the registry edges scattered, the slashed
+    validators' effective balances in ``state.slashings`` (as
+    ``slash_validator`` accounts them) and every committee of epoch 5 in
+    ``previous_epoch_attestations`` (all bits set, inclusion delays 1-4,
+    a seeded tenth with a wrong target root and another tenth with a
+    wrong head root); finalized at epoch 4, not leaking."""
+    scatter = epoch_scatter(spec, np, n, seed)
+    state = build_registry_state(spec, ssz, np, pks, n, scatter)
+    rng = np.random.default_rng(seed + 1)
+    roots = [hashlib.sha256(SEED + b"root" + i.to_bytes(4, "little")).digest()
+             for i in range(EPOCH_SLOT + 1)]
+    hist = spec.SLOTS_PER_HISTORICAL_ROOT
+    state.slot = EPOCH_SLOT
+    state.block_roots = [roots[i] if i <= EPOCH_SLOT else b"\x00" * 32 for i in range(hist)]
+    state.state_roots = [hashlib.sha256(roots[i]).digest() if i <= EPOCH_SLOT else b"\x00" * 32
+                         for i in range(hist)]
+    state.latest_block_header = spec.BeaconBlockHeader(
+        slot=EPOCH_SLOT, proposer_index=7, parent_root=roots[EPOCH_SLOT - 1],
+        body_root=ssz.hash_tree_root(spec.BeaconBlockBody()))
+    state.slashings[3] = scatter.slashed_total
+    fin = spec.Checkpoint(epoch=4, root=roots[4 * 32])
+    state.finalized_checkpoint = fin
+    state.previous_justified_checkpoint = fin
+    state.current_justified_checkpoint = fin
+    state.justification_bits = [True, False, False, False]
+    # every validator is active at epoch 5 (get_committee_count_per_slot)
+    per_slot = max(1, min(spec.MAX_COMMITTEES_PER_SLOT,
+                          n // spec.SLOTS_PER_EPOCH // spec.TARGET_COMMITTEE_SIZE))
+    size = n // (32 * per_slot)
+    prev_start = 5 * 32
+    atts = []
+    for k in range(32 * per_slot):
+        slot, index = prev_start + k // per_slot, k % per_slot
+        roll = rng.random()
+        target_root = roots[prev_start] if roll >= 0.1 else roots[prev_start + 1]
+        head = roots[slot] if roll >= 0.2 else roots[slot - 1]
+        data = spec.AttestationData(slot=slot, index=index, beacon_block_root=head,
+                                    source=fin, target=spec.Checkpoint(epoch=5, root=target_root))
+        atts.append(spec.PendingAttestation(
+            aggregation_bits=[True] * size, data=data,
+            inclusion_delay=int(rng.integers(1, 5)), proposer_index=int(rng.integers(0, n))))
+    state.previous_epoch_attestations = atts
+    return state
+
+
+def leaking(spec, state):
+    """A copy of ``state`` finalized at epoch 0: finality delay 5 > 4, an
+    inactivity leak."""
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    out = state_arrays.fork_state(state)
+    out.finalized_checkpoint = spec.Checkpoint(epoch=0, root=state.block_roots[0])
+    return out
+
+
+def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
+    """One epoch transition of a copy of ``base`` through ``process_slots``
+    on the card, every K10-K12 call recorded; the same epoch again on a
+    ``fork_state`` copy with the plain versions on the card; the post-state
+    root on K5 against the hashlib root of a fresh deserialization."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+
+    t0 = time.perf_counter()
+    state = state_arrays.fork_state(base)
+    replay = state_arrays.fork_state(base)
+    t_copy = time.perf_counter() - t0
+    in_leak = bool(spec.is_in_inactivity_leak(state))
+    ek.use_vectorized(dev)
+    host, card_clock = StageClock(), StageClock(sync=torch.cuda.synchronize)
+    for name in ("process_justification_and_finalization", "process_epoch", "process_slot",
+                 "get_unslashed_attesting_indices"):
+        host.wrap(spec, name)
+    for name in EPOCH_KERNELS:
+        card_clock.wrap(ek, name)
+    for name in ("upload", "download"):
+        card_clock.wrap(state_arrays, name)
+    host.wrap(state_arrays, "_write_u64_list")
+    # each sub-transition's wall ms and the part of it spent in the card
+    # clock's synchronized wrappers (kernels and host/card copies)
+    split = {}
+
+    def splitting(name, fn):
+        def timed(st):
+            c0, t0 = sum(card_clock.ms.values()), time.perf_counter()
+            try:
+                return fn(st)
+            finally:
+                split[name] = ((time.perf_counter() - t0) * 1e3,
+                               sum(card_clock.ms.values()) - c0)
+        return timed
+    for name in SUB_TRANSITIONS:
+        setattr(spec, name, splitting(name, getattr(spec, name)))
+    recorders = [CallRecorder(torch, ek, name) for name in EPOCH_KERNELS]
+    ek.reset_stats()
+    state_arrays.reset_stats()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    for r in recorders:
+        r.__enter__()
+    t0 = time.perf_counter()
+    spec.process_slots(state, EPOCH_SLOT + 1)
+    torch.cuda.synchronize()
+    t_slots = (time.perf_counter() - t0) * 1e3
+    for r in reversed(recorders):
+        r.__exit__()
+    launches = {k: _build.launches[k] for k in EPOCH_KERNELS}
+    for name in SUB_TRANSITIONS:
+        delattr(spec, name)
+    card_clock.restore()
+    host.restore()
+    stats, copies = ek.stats(), state_arrays.stats()
+    check(all(launches[k] >= 1 for k in EPOCH_KERNELS),
+          f"{tag}: a kernel of the epoch was not launched: {launches}")
+    check(stats == {"vectorized": 4, "loop": 0, "guard": 0},
+          f"{tag}: expected 4 vectorized commits, 0 loop runs, 0 guard trips: {stats}")
+    for key in ("h2d.balances", "d2h.balances", "h2d.eff", "d2h.eff", "commits"):
+        check(copies.get(key) == 1, f"{tag}: {key} = {copies.get(key)}, expected 1: {copies}")
+
+    merkle.reset_stats()
+    t0 = time.perf_counter()
+    root = bytes(ssz.hash_tree_root(state))
+    torch.cuda.synchronize()
+    t_root = (time.perf_counter() - t0) * 1e3
+    root_stats = merkle.stats()
+
+    # the same epoch on the fork with the plain versions on the card
+    plain = epoch_plain(ek)
+    saved = {k: getattr(ek, k) for k in EPOCH_KERNELS}
+    for k in EPOCH_KERNELS:
+        setattr(ek, k, plain[k])
+    try:
+        t0 = time.perf_counter()
+        spec.process_slots(replay, EPOCH_SLOT + 1)
+        torch.cuda.synchronize()
+        t_plain = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k in EPOCH_KERNELS:
+            setattr(ek, k, saved[k])
+    check(bytes(ssz.hash_tree_root(replay)) == root,
+          f"{tag}: the plain versions on the card give another post-state root")
+    del replay
+    root_hl, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, state)
+    check(root_hl == root, f"{tag}: the post-state root on K5 differs from the hashlib root")
+    err = {r.name: r.hold(plain[r.name]) for r in recorders}
+
+    ms, cm = host.ms, card_clock.ms
+    kernel_ms = {k: cm.get(k, 0.0) for k in EPOCH_KERNELS}
+    copy_ms = cm.get("upload", 0.0) + cm.get("download", 0.0)
+    crossings = {k: v for k, v in copies.items() if k.startswith(("h2d.", "d2h."))}
+    other_ms = (ms["process_epoch"] - ms["process_justification_and_finalization"]
+                - sum(v[0] for v in split.values()))
+    print(f"epoch {tag}: {len(base.validators)} validators, leak {in_leak}: "
+          f"process_slots {t_slots:.2f} ms = process_slot root {ms['process_slot']:.2f} + "
+          f"process_epoch {ms['process_epoch']:.2f} + scope commit and the rest "
+          f"{t_slots - ms['process_slot'] - ms['process_epoch']:.2f}; in process_epoch: "
+          f"justification and finalization {ms['process_justification_and_finalization']:.2f}, "
+          + ", ".join(f"{n.replace('process_', '')} {split[n][0]:.2f} (card {split[n][1]:.2f}, "
+                      f"host {split[n][0] - split[n][1]:.2f})" for n in SUB_TRANSITIONS)
+          + f", other sub-transitions {other_ms:.2f}; card time = synchronized kernel wrappers ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items())
+          + f") and host/card copies {copy_ms:.2f} ({crossings}); commit (_write_u64_list) "
+          f"{ms.get('_write_u64_list', 0.0):.2f}; get_unslashed_attesting_indices "
+          f"{ms['get_unslashed_attesting_indices']:.2f} (all calls) on {card}")
+    print(f"epoch {tag}: launches {launches}, engine {stats}, copies {copies}; post-state root "
+          f"{root.hex()} on K5 in {t_root:.2f} ms (pairs by K5 {root_stats['pairs_batched']}, by "
+          f"hashlib {root_stats['pairs_hashlib']}) equal to the hashlib root of a fresh "
+          f"deserialization ({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize) and to "
+          f"the plain versions' run on the card ({t_plain:.2f} ms); set-up: two forks "
+          f"{t_copy:.2f} s; every K10-K12 call held against its plain version")
+    sub_ms = {n: split[n] for n in SUB_TRANSITIONS}
+    return {"launches": launches, "err": err, "calls": {r.name: r.calls for r in recorders},
+            "slots_ms": t_slots, "epoch_ms": ms["process_epoch"], "sub_ms": sub_ms,
+            "kernel_ms": kernel_ms, "copy_ms": copy_ms, "root_ms": t_root,
+            "plain_slots_ms": t_plain, "in_leak": in_leak}
+
+
+def reduced_epoch_leg(torch, dev, spec, ssz, np, pks, n: int):
+    """The same construction at ``n`` validators: the port's spec loops
+    and its engine on the card give identical post-state roots, not
+    leaking and leaking."""
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    t0 = time.perf_counter()
+    base = epoch_state(spec, ssz, np, pks, n, seed=n)
+    out = []
+    for pre in (base, leaking(spec, base)):
+        roots = {}
+        for engine in ("loops", "vectorized"):
+            s = state_arrays.fork_state(pre)
+            if engine == "loops":
+                ek.use_loops()
+            else:
+                ek.use_vectorized(dev)
+            ek.reset_stats()
+            spec.process_slots(s, EPOCH_SLOT + 1)
+            st = ek.stats()
+            want = {"vectorized": 4, "loop": 0, "guard": 0} if engine == "vectorized" \
+                else {"vectorized": 0, "loop": 4, "guard": 0}
+            check(st == want, f"reduced leg ({engine}): engine counters {st}")
+            roots[engine] = bytes(ssz.hash_tree_root(s))
+        check(roots["loops"] == roots["vectorized"],
+              f"reduced leg: loops and the engine differ at {n} validators")
+        out.append(bool(spec.is_in_inactivity_leak(pre)))
+    ek.use_vectorized(dev)
+    print(f"reduced leg: {n} validators, leak {out}: the spec loops and the engine on the card "
+          f"give identical post-state roots ({time.perf_counter() - t0:.2f} s)")
+
+
+def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
+    """Phase 10: a mainnet phase0 epoch transition of ``n_validators``
+    through ``process_slots`` on the card, not leaking and leaking; the
+    reduced leg; K10-K12 timed beside their bounds and plain versions."""
+    import numpy as np
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import bls, ssz
+
+    spec = build_spec("phase0", "mainnet")
+    sha256.install_merkle_hasher(dev)
+    bls.bls_active = False              # epoch processing verifies no signature
+    err = epoch_kernel_checks(torch, dev, n_validators)
+
+    t0 = time.perf_counter()
+    base = epoch_state(spec, ssz, np, pks, n_validators, seed=4)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = bytes(ssz.hash_tree_root(base))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    state_arrays.reset_stats()
+    t0 = time.perf_counter()
+    store = state_arrays.of(base)
+    store.registry()
+    store.balances()
+    t_extract = (time.perf_counter() - t0) * 1e3
+    print(f"epoch state: {n_validators} validators at slot {EPOCH_SLOT}, "
+          f"{len(base.previous_epoch_attestations)} pending attestations of epoch 5 "
+          f"(committees of {len(base.previous_epoch_attestations[0].aggregation_bits)}); "
+          f"set-up: build {t_build:.2f} s, cold root {t_cold:.3f} s on K5 ({cold.hex()[:16]}), "
+          f"column extraction {t_extract:.2f} ms (registry and balances, once per lineage: "
+          f"the runs' forks share them) on {card}")
+    runs = {"not_leaking": epoch_run(torch, dev, card, spec, base, "not leaking")}
+    runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "leaking")
+    check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
+          "the two runs must be one not leaking and one leaking")
+    del base
+    reduced_epoch_leg(torch, dev, spec, ssz, np, pks, REDUCED_VALIDATORS)
+    bls.bls_active = True
+    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold}
+
+
+def epoch_entries(torch, card, phase) -> list:
+    """The K10-K12 entries of the ``kernels`` line, timed per launch with
+    CUDA events at the leaking run's arguments, beside their bounds
+    (bytes and operations this run's data needs) and their plain
+    versions on the card."""
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    run = phase["runs"]["leaking"]
+    plain = epoch_plain(ek)
+    out = []
+    for name in EPOCH_KERNELS:
+        args = run["calls"][name][0][0]
+        fn = getattr(ek, name)
+        ms = queued_ms(torch, lambda: fn(*args))
+        back_ms = cuda_ms(torch, lambda: fn(*args), reps=20)
+        p_ms = plain_ms(torch, lambda: plain[name](*args))
+        if name == "phase0_deltas":
+            nbytes = ek.phase0_deltas_bytes(args[3])
+            ops = ek.phase0_deltas_ops(args[3], run["in_leak"])
+        elif name == "effective_balance":
+            nbytes, ops = ek.effective_balance_bytes(args[0].numel()), \
+                ek.effective_balance_ops(args[0].numel())
+        else:
+            nbytes, ops = ek.slashings_bytes(args[2]), ek.slashings_ops(args[2])
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        launches = max(r["launches"][name] for r in phase["runs"].values())
+        err = max(phase["err"], max(r["err"][name] for r in phase["runs"].values()))
+        out.append({"name": name, "route": "cuda",
+                    "source": "consensus_specs_tpu_torch/csrc/epoch.cu",
+                    "replaces": EPOCH_REPLACES[name], "launches": launches, "max_abs_err": err,
+                    "ms": ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
+                    "lanes": int(args[0].numel()), "bytes": nbytes, "ops": ops,
+                    "back_to_back_ms": back_ms})
+        print(f"time {name} at {args[0].numel()} lanes: {ms:.4f} ms per launch queued ahead "
+              f"({back_ms:.4f} ms per wrapper call back to back, host launch included; plain on the "
+              f"card {p_ms:.3f} ms, bound {max(b_ms, o_ms):.5f} ms: bytes {nbytes} -> "
+              f"{b_ms:.5f} ms, operations {ops} -> {o_ms:.5f} ms); launches per epoch "
+              f"{launches} on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
@@ -1413,7 +1836,11 @@ def main(argv=None) -> int:
     k4["slice3_launches"] = s3_launches["pairing_check"]
     kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
 
-    # ---- 10. result lines ----------------------------------------------------
+    # ---- 10. a mainnet phase0 epoch transition ----------------------------------
+    epoch = epoch_phase(torch, cu, card, pks, opts.validators)
+    kernels += epoch_entries(torch, card, epoch)
+
+    # ---- 11. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

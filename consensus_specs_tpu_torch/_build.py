@@ -27,14 +27,15 @@ from .ops.bls12_381 import hash_to_curve as _H
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-LIBS = ("points", "htc", "pairing", "sha256", "msm", "fr_fft")
+LIBS = ("points", "htc", "pairing", "sha256", "msm", "fr_fft", "epoch")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 # kernel name -> launches on the card since the last reset (one per
 # wrapper call that launched the kernel; CPU calls do not count)
 launches = {"g1_aggregate_scale": 0, "g2_scale_sum": 0, "hash_to_g2": 0,
             "pairing_check": 0, "hash64": 0, "sha256_blocks": 0,
-            "expand_windows": 0, "g1_msm": 0, "fr_butterfly": 0}
+            "expand_windows": 0, "g1_msm": 0, "fr_butterfly": 0,
+            "phase0_deltas": 0, "effective_balance": 0, "slashings": 0}
 
 _lock = threading.Lock()
 _libs = {}
@@ -213,11 +214,17 @@ _SIGS = {
     "expand_windows": [_VP, _VP, _VP, ctypes.c_int, _VP],
     "g1_msm": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
     "fr_butterfly": [_VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    "phase0_deltas": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP],
+    "effective_balance": [_VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 4
+    + [_VP],
+    "slashings": [_VP, _VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 3
+    + [_VP],
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
          "hash_to_g2": "htc", "pairing_check": "pairing",
          "hash64": "sha256", "sha256_blocks": "sha256",
-         "expand_windows": "msm", "g1_msm": "msm", "fr_butterfly": "fr_fft"}
+         "expand_windows": "msm", "g1_msm": "msm", "fr_butterfly": "fr_fft",
+         "phase0_deltas": "epoch", "effective_balance": "epoch", "slashings": "epoch"}
 
 
 def load(lib: str) -> ctypes.CDLL:

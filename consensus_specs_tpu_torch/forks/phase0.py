@@ -2,11 +2,16 @@
 
 Counterpart of ``consensus_specs_tpu/forks/phase0.py``: everything
 ``state_transition`` reaches.  The fork-choice and validator-guide
-mixins are not carried yet, and epoch processing runs the spec loops:
-the JAX package's vectorized epoch engine (``epoch_kernels.try_process_*``)
-and its state column store (``state_arrays.commit_scope``) are left out.
-That engine's exactness contract (``ops/epoch_kernels.py:30-36``: loops
-and engine give identical roots) is what the tests hold the port to.
+mixins are not carried yet.  Epoch processing goes through the port's
+vectorized epoch engine first (``ops/epoch_kernels.py``: each
+``try_process_*`` returns True when the engine committed the
+sub-transition, on the card or on the plain versions), inside the state
+column store's ``commit_scope`` (``state/arrays.py``), and falls to the
+spec loops below when the engine is off or a guard declines.  The
+engine's exactness contract (loops and engine give identical roots) is
+what the tests hold the port to.  Committees slice one vectorized
+swap-or-not permutation of the epoch's active set, computed once per
+seed (``_shuffled_positions``), instead of shuffling member by member.
 
 Behavioral port of ``specs/phase0/beacon-chain.md`` (reference, v1.4.0-beta.7)
 re-architected as a preset-bound spec class: constants are instance
@@ -23,6 +28,8 @@ IndexError/ValueError from SSZ bounds) on invalid input — the harness's
 from types import SimpleNamespace
 from typing import Dict, Sequence, Set
 
+import numpy as np
+
 from ..utils.hash_function import hash
 from ..utils.ssz import (
     hash_tree_root, uint_to_bytes, copy as ssz_copy,
@@ -32,6 +39,8 @@ from ..utils.ssz import (
 from ..utils import bls
 from ..utils.lru import LRUDict
 from ..utils.ssz.forest import hash_forest
+from ..ops import epoch_kernels
+from ..state import arrays as state_arrays
 from . import register_fork
 from .base_types import (
     Slot, Epoch, CommitteeIndex, ValidatorIndex, Gwei, Root, Hash32, Version,
@@ -105,6 +114,7 @@ class Phase0Spec:
             "proposer": LRUDict(512),
             "active_indices": LRUDict(128),
             "total_balance": LRUDict(128),
+            "shuffling": LRUDict(16),
         }
 
     # -- config ------------------------------------------------------------
@@ -419,12 +429,40 @@ class Phase0Spec:
                 return ValidatorIndex(candidate_index)
             i = uint64(i + 1)
 
+    def _shuffled_positions(self, index_count, seed) -> np.ndarray:
+        """``compute_shuffled_index(i, index_count, seed)`` for every i at
+        once: the same swap-or-not rounds over the whole index array, one
+        hash per 256 positions per round instead of two per index.
+        Cached per (seed, index_count): an epoch's committees all slice
+        one permutation."""
+        n = int(index_count)
+        key = (bytes(seed), n)
+        cached = self._caches["shuffling"].get(key)
+        if cached is not None:
+            return cached
+        idx = np.arange(n, dtype=np.int64)
+        for current_round in range(self.SHUFFLE_ROUND_COUNT):
+            prefix = seed + uint_to_bytes(uint8(current_round))
+            pivot = self.bytes_to_uint64(hash(prefix)[0:8]) % n
+            flip = (pivot + n - idx) % n
+            position = np.maximum(idx, flip)
+            source = np.frombuffer(b"".join(
+                hash(prefix + uint_to_bytes(uint32(b)))
+                for b in range((n - 1) // 256 + 1)), dtype=np.uint8).reshape(-1, 32)
+            byte_val = source[position >> 8, (position & 255) >> 3]
+            bit = (byte_val >> (position & 7).astype(np.uint8)) & 1
+            idx = np.where(bit == 1, flip, idx)
+        self._caches["shuffling"][key] = idx
+        return idx
+
     def compute_committee(self, indices, seed, index, count) -> Sequence[ValidatorIndex]:
         """beacon-chain.md:823"""
         start = (len(indices) * index) // count
         end = (len(indices) * (index + 1)) // count
-        return [indices[self.compute_shuffled_index(uint64(i), uint64(len(indices)), seed)]
-                for i in range(start, end)]
+        if start == end:
+            return []
+        perm = self._shuffled_positions(len(indices), seed)
+        return [indices[i] for i in perm[start:end].tolist()]
 
     def compute_epoch_at_slot(self, slot) -> Epoch:
         return Epoch(slot // self.SLOTS_PER_EPOCH)
@@ -711,9 +749,11 @@ class Phase0Spec:
         assert state.slot < slot
         while state.slot < slot:
             self.process_slot(state)
-            # Process epoch on the start slot of the next epoch
+            # Process epoch on the start slot of the next epoch; the
+            # engine's balance writes reach SSZ once, at scope exit
             if (state.slot + 1) % self.SLOTS_PER_EPOCH == 0:
-                self.process_epoch(state)
+                with state_arrays.commit_scope(state):
+                    self.process_epoch(state)
             state.slot = Slot(state.slot + 1)
 
     def process_slot(self, state) -> None:
@@ -760,10 +800,13 @@ class Phase0Spec:
                 if a.data.beacon_block_root == self.get_block_root_at_slot(state, a.data.slot)]
 
     def get_unslashed_attesting_indices(self, state, attestations) -> Set[ValidatorIndex]:
+        # the spec's ``output = output.union(...)`` copies the growing set
+        # once per attestation: quadratic, ~22 s per call for an epoch's
+        # 2048 attestations at 2^18 validators.  The in-place union is
+        # the same set in linear time.
         output = set()
         for a in attestations:
-            output = output.union(
-                self.get_attesting_indices(state, a.data, a.aggregation_bits))
+            output |= self.get_attesting_indices(state, a.data, a.aggregation_bits)
         return set(filter(lambda index: not state.validators[index].slashed, output))
 
     def get_attesting_balance(self, state, attestations) -> Gwei:
@@ -931,6 +974,8 @@ class Phase0Spec:
         return rewards, penalties
 
     def process_rewards_and_penalties(self, state) -> None:
+        if epoch_kernels.try_process_rewards_and_penalties(self, state):
+            return
         # No rewards are applied at the end of `GENESIS_EPOCH` because rewards
         # are for work done in the previous epoch
         if self.get_current_epoch(state) == GENESIS_EPOCH:
@@ -944,6 +989,8 @@ class Phase0Spec:
 
     def process_registry_updates(self, state) -> None:
         """beacon-chain.md:1592"""
+        if epoch_kernels.try_process_registry_updates(self, state):
+            return
         # Process activation eligibility and ejections
         for index, validator in enumerate(state.validators):
             if self.is_eligible_for_activation_queue(validator):
@@ -966,6 +1013,8 @@ class Phase0Spec:
 
     def process_slashings(self, state) -> None:
         """beacon-chain.md:1619"""
+        if epoch_kernels.try_process_slashings(self, state):
+            return
         epoch = self.get_current_epoch(state)
         total_balance = self.get_total_active_balance(state)
         adjusted_total_slashing_balance = min(
@@ -985,6 +1034,8 @@ class Phase0Spec:
             state.eth1_data_votes = type(state.eth1_data_votes)()
 
     def process_effective_balance_updates(self, state) -> None:
+        if epoch_kernels.try_process_effective_balance_updates(self, state):
+            return
         for index, validator in enumerate(state.validators):
             balance = state.balances[index]
             HYSTERESIS_INCREMENT = uint64(

@@ -1,0 +1,676 @@
+"""Vectorized epoch engine for phase0: kernels K10 ``phase0_deltas``, K11
+``effective_balance`` and K12 ``slashings`` with their plain versions,
+the engine switch and the ``try_process_*`` orchestrators.
+
+Counterpart of ``consensus_specs_tpu/ops/epoch_kernels.py`` (phase0
+path).  The per-validator epoch loops of ``forks/phase0.py`` are
+O(validators) python passes over SSZ views; this module re-expresses
+them over the state column store (``state/arrays.py``).  As in the JAX
+single-device engine, the masks built from the python attester sets,
+the masked sums, the inclusion-delay pass and the registry scans stay
+host numpy; the O(validators) ``*_kernel`` passes run on the card, fused
+as ``parallel/mesh_epoch.py`` composes them per shard:
+
+  K10 ``phase0_deltas``      ``phase0_component_kernel`` x3 (:205),
+                             ``phase0_inactivity_kernel`` (:223) and
+                             ``apply_deltas_kernel`` (:162), as in
+                             ``_p_phase0_deltas`` (mesh_epoch.py:363-416)
+  K11 ``effective_balance``  ``effective_balance_kernel`` (:240), as in
+                             ``_p_eff_balance`` (:473)
+  K12 ``slashings``          ``slashing_penalty_kernel`` (:252) and the
+                             clamped decrease, as in ``_p_slashings``
+                             (:444-471)
+
+The CUDA side is ``csrc/epoch.cu``: one thread per validator lane, each
+column read once and the result written once; bound: bytes.  Columns
+are int64 tensors holding uint64 bits.  In torch, uint64 tensors have
+no arithmetic, so the plain versions compute on int64 lanes; that is
+exact because every lane product is guarded below 2^63 (``_guard``: the
+JAX engine's limit is 2^64, so a state between the two limits runs the
+spec loop here and gives the same root).  Epoch comparisons
+(``FAR_FUTURE_EPOCH`` is 2^64 - 1) stay in host numpy uint64.
+
+Switch: ``use_vectorized(device=None)`` (None: the card, raising
+without CUDA; ``"cpu"``: the plain versions, as the tests run),
+``use_loops()`` (the spec loops, the differential oracle), ``use_auto()``
+(the default: the card when CUDA is available, else the loops).  A
+kernel that fails to build or launch raises; a guard trip declines to
+the spec loop and is counted in ``stats()``.
+
+Not carried: the supervisor, fault sites and sentinel audits, the mesh
+dispatch, the obs registry, ``install_vectorized_epoch`` (the compiled
+ladder) and the altair kernels (``flag_deltas_kernel``,
+``inactivity_penalty_kernel``, ``inactivity_updates_kernel``).
+"""
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..state import arrays as state_arrays
+from ..utils.ssz import sequence_items
+
+_LANE_LIMIT = 1 << 63       # every lane value and product stays below it
+
+# ---------------------------------------------------------------------------
+# Runtime switch
+# ---------------------------------------------------------------------------
+
+_mode = "auto"
+_device = None
+
+
+def use_vectorized(device=None) -> None:
+    """Force the engine on, on ``device`` (None: the card; raises without
+    CUDA).  Guards can still decline to the spec loop."""
+    global _mode, _device
+    d = _build.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    _mode, _device = "on", d
+
+
+def use_loops() -> None:
+    """Force the per-validator spec loops (the differential oracle)."""
+    global _mode
+    _mode = "off"
+
+
+def use_auto() -> None:
+    """The default: the engine on the card when CUDA is available, the
+    spec loops otherwise."""
+    global _mode
+    _mode = "auto"
+
+
+def enabled() -> bool:
+    if _mode == "auto":
+        return torch.cuda.is_available()
+    return _mode == "on"
+
+
+def backend_name() -> str:
+    return "vectorized" if enabled() else "loops"
+
+
+def engine_device() -> torch.device:
+    if _mode == "on":
+        return _device
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+_STATS = {"vectorized": 0, "loop": 0, "guard": 0}
+
+
+def stats() -> dict:
+    """``vectorized``: sub-transitions the engine committed; ``loop``:
+    sub-transitions left to the spec loop (engine off, genesis no-op or a
+    guard trip); ``guard``: the guard trips among them."""
+    return dict(_STATS)
+
+
+def reset_stats() -> None:
+    for k in _STATS:
+        _STATS[k] = 0
+
+
+class _Fallback(Exception):
+    """A guard refused the array path (a lane could reach 2^63)."""
+
+
+def _guard(*products) -> None:
+    """Decline to the spec loop if any python-int bound reaches 2^63."""
+    for p in products:
+        if p >= _LANE_LIMIT:
+            raise _Fallback()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (PyTorch, int64 lanes; any device)
+# ---------------------------------------------------------------------------
+
+def apply_deltas_plain(balances, rewards, penalties):
+    """``apply_deltas_kernel``: increase_balance, then the clamped
+    decrease_balance, per validator."""
+    up = balances + rewards
+    return torch.where(penalties > up, torch.zeros_like(up), up - penalties)
+
+
+def base_reward_plain(eff, base_reward_factor, sqrt_total, base_rewards_per_epoch):
+    """phase0 ``get_base_reward`` column."""
+    return eff * base_reward_factor // sqrt_total // base_rewards_per_epoch
+
+
+def phase0_component_plain(base_reward, eligible, attesting, *, in_leak,
+                           attesting_increments, total_increments):
+    """``phase0_component_kernel`` (source/target/head deltas)."""
+    zero = torch.zeros_like(base_reward)
+    if in_leak:
+        reward = base_reward
+    else:
+        reward = base_reward * attesting_increments // total_increments
+    rewards = torch.where(eligible & attesting, reward, zero)
+    penalties = torch.where(eligible & ~attesting, base_reward, zero)
+    return rewards, penalties
+
+
+def phase0_inactivity_plain(base_reward, eff, eligible, target_attesting, *,
+                            base_rewards_per_epoch, proposer_reward_quotient,
+                            finality_delay, inactivity_penalty_quotient):
+    """``phase0_inactivity_kernel`` (leak epochs only)."""
+    zero = torch.zeros_like(base_reward)
+    base_pen = base_rewards_per_epoch * base_reward - base_reward // proposer_reward_quotient
+    extra = eff * finality_delay // inactivity_penalty_quotient
+    pen = base_pen + torch.where(target_attesting, zero, extra)
+    return torch.where(eligible, pen, zero)
+
+
+@torch.inference_mode()
+def effective_balance_plain(balances, eff, increment, downward_threshold,
+                            upward_threshold, max_effective_balance):
+    """``effective_balance_kernel``: the hysteresis update (plain K11)."""
+    crossed = ((balances + downward_threshold < eff)
+               | (eff + upward_threshold < balances))
+    capped = torch.clamp(balances - balances % increment, max=max_effective_balance)
+    return torch.where(crossed, capped, eff)
+
+
+def slashing_penalty_plain(eff, target, *, increment, adjusted_total_slashing_balance,
+                           total_balance):
+    """``slashing_penalty_kernel`` (the spec's truncation order: divide by
+    the total before multiplying back by the increment)."""
+    penalty = eff // increment * adjusted_total_slashing_balance // total_balance * increment
+    return torch.where(target, penalty, torch.zeros_like(penalty))
+
+
+class Phase0Scalars(NamedTuple):
+    """K10's scalars (python ints below 2^63)."""
+    base_reward_factor: int
+    sqrt_total: int
+    base_rewards_per_epoch: int
+    attesting_increments: Tuple[int, int, int]    # source, target, head
+    total_increments: int
+    in_leak: bool
+    proposer_reward_quotient: int
+    finality_delay: int
+    inactivity_penalty_quotient: int
+
+
+@torch.inference_mode()
+def phase0_deltas_plain(eff, incl_rewards, balances, eligible, attesting, s):
+    """Plain K10: the three component deltas, the inclusion rewards (an
+    input), the leak's inactivity penalties, summed and applied once."""
+    br = base_reward_plain(eff, s.base_reward_factor, s.sqrt_total,
+                           s.base_rewards_per_epoch)
+    rewards, penalties = incl_rewards, torch.zeros_like(eff)
+    for c in range(3):
+        r, p = phase0_component_plain(
+            br, eligible, attesting[c], in_leak=s.in_leak,
+            attesting_increments=s.attesting_increments[c],
+            total_increments=s.total_increments)
+        rewards, penalties = rewards + r, penalties + p
+    if s.in_leak:
+        penalties = penalties + phase0_inactivity_plain(
+            br, eff, eligible, attesting[1],
+            base_rewards_per_epoch=s.base_rewards_per_epoch,
+            proposer_reward_quotient=s.proposer_reward_quotient,
+            finality_delay=s.finality_delay,
+            inactivity_penalty_quotient=s.inactivity_penalty_quotient)
+    return apply_deltas_plain(balances, rewards, penalties)
+
+
+@torch.inference_mode()
+def slashings_plain(eff, balances, target, increment, adjusted, total_balance):
+    """Plain K12: the slashing penalties subtracted with a clamp at zero."""
+    pen = slashing_penalty_plain(eff, target, increment=increment,
+                                 adjusted_total_slashing_balance=adjusted,
+                                 total_balance=total_balance)
+    return torch.where(pen > balances, torch.zeros_like(pen), balances - pen)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (the plain version for CPU tensors only)
+# ---------------------------------------------------------------------------
+
+def _columns(n, *named):
+    for t, name, dtype in named:
+        _build.check(t, name, dtype, (n,))
+
+
+def phase0_deltas(eff, incl_rewards, balances, eligible, attesting, s: Phase0Scalars):
+    """K10: new balances after the attestation deltas.  ``eff``,
+    ``incl_rewards``, ``balances``: (V,) int64 holding uint64 bits;
+    ``eligible``: (V,) bool; ``attesting``: (3, V) bool (source, target,
+    head); ``s``: the scalars.  Bound: bytes (:func:`phase0_deltas_bytes`)."""
+    dev = _build.same_device(eff, incl_rewards, balances, eligible, attesting)
+    n = balances.shape[0]
+    _columns(n, (eff, "eff", torch.int64), (incl_rewards, "incl_rewards", torch.int64),
+             (balances, "balances", torch.int64), (eligible, "eligible", torch.bool))
+    _build.check(attesting, "attesting", torch.bool, (3, n))
+    if dev.type == "cpu":
+        return phase0_deltas_plain(eff, incl_rewards, balances, eligible, attesting, s)
+    out = torch.empty_like(balances)
+    params = torch.tensor([s.base_reward_factor, s.sqrt_total, s.base_rewards_per_epoch,
+                           *s.attesting_increments, s.total_increments, int(s.in_leak),
+                           s.proposer_reward_quotient, s.finality_delay,
+                           s.inactivity_penalty_quotient], dtype=torch.int64)
+    if n:
+        _build.launch("phase0_deltas", eff, incl_rewards, balances, eligible, attesting,
+                      out, n, params)
+    return out
+
+
+def effective_balance(balances, eff, increment, down, up, max_effective_balance):
+    """K11: the new effective balances.  ``balances``, ``eff``: (V,) int64
+    holding uint64 bits.  Bound: bytes (24 B per lane)."""
+    dev = _build.same_device(balances, eff)
+    n = balances.shape[0]
+    _columns(n, (balances, "balances", torch.int64), (eff, "eff", torch.int64))
+    if dev.type == "cpu":
+        return effective_balance_plain(balances, eff, increment, down, up,
+                                       max_effective_balance)
+    out = torch.empty_like(eff)
+    if n:
+        _build.launch("effective_balance", balances, eff, out, n, increment, down, up,
+                      max_effective_balance)
+    return out
+
+
+def slashings(eff, balances, target, increment, adjusted, total_balance):
+    """K12: balances after the slashing penalties of the ``target`` lanes
+    (clamped at zero).  ``eff``, ``balances``: (V,) int64 holding uint64
+    bits; ``target``: (V,) bool.  Bound: bytes (:func:`slashings_bytes`)."""
+    dev = _build.same_device(eff, balances, target)
+    n = balances.shape[0]
+    _columns(n, (eff, "eff", torch.int64), (balances, "balances", torch.int64),
+             (target, "target", torch.bool))
+    if dev.type == "cpu":
+        return slashings_plain(eff, balances, target, increment, adjusted, total_balance)
+    out = torch.empty_like(balances)
+    if n:
+        _build.launch("slashings", eff, balances, target, out, n, increment, adjusted,
+                      total_balance)
+    return out
+
+
+def phase0_deltas_bytes(eligible) -> int:
+    """Bytes K10's function must move: balances, inclusion rewards and the
+    eligibility mask of every lane read, the new balances written, and the
+    effective balance and three attester flags of the eligible lanes."""
+    n, e = eligible.numel(), int(eligible.sum())
+    return n * (8 + 8 + 1 + 8) + e * (8 + 3)
+
+
+def effective_balance_bytes(n: int) -> int:
+    """Bytes K11 must move: two columns read, one written."""
+    return 24 * n
+
+
+def slashings_bytes(target) -> int:
+    """Bytes K12 must move: balances and the target mask read, the new
+    balances written, and the effective balance of the target lanes."""
+    return target.numel() * (8 + 1 + 8) + 8 * int(target.sum())
+
+
+def phase0_deltas_ops(eligible, in_leak: bool) -> int:
+    """64-bit integer operations K10's function does (one each): per lane
+    the sum and the clamped subtraction (3); per eligible lane the base
+    reward (3) and three components (4 each), and in a leak the
+    inactivity penalty (7)."""
+    n, e = eligible.numel(), int(eligible.sum())
+    return 3 * n + e * (15 + (7 if in_leak else 0))
+
+
+def effective_balance_ops(n: int) -> int:
+    """Two sums, two compares, a remainder, a subtraction, a min and a
+    select per lane."""
+    return 8 * n
+
+
+def slashings_ops(target) -> int:
+    """A compare and a select per lane; two divisions, two products, a
+    compare and a subtraction per target lane."""
+    return 2 * target.numel() + 6 * int(target.sum())
+
+
+# ---------------------------------------------------------------------------
+# Host helpers (numpy uint64, exact)
+# ---------------------------------------------------------------------------
+
+def _masked_sum(eff, mask) -> int:
+    """Exact python-int sum of a masked uint64 column."""
+    sub = eff[mask]
+    if sub.size == 0:
+        return 0
+    mx = int(sub.max())
+    if mx and sub.size > ((1 << 64) - 1) // mx:
+        return sum(int(x) for x in sub.tolist())
+    return int(sub.sum(dtype=np.uint64))
+
+
+def _epoch_masks(spec, cols, previous_epoch):
+    """Active-at-previous-epoch and reward-eligibility masks
+    (``get_eligible_validator_indices``)."""
+    prev = np.uint64(previous_epoch)
+    active_prev = (cols["act"] <= prev) & (prev < cols["ext"])
+    eligible = active_prev | (cols["sl"] & (np.uint64(previous_epoch + 1) < cols["wd"]))
+    return active_prev, eligible
+
+
+def _total_active_balance(spec, cols, current_epoch) -> int:
+    """``get_total_active_balance`` from columns (same increment clamp)."""
+    cur = np.uint64(current_epoch)
+    active = (cols["act"] <= cur) & (cur < cols["ext"])
+    return max(int(spec.EFFECTIVE_BALANCE_INCREMENT), _masked_sum(cols["eff"], active))
+
+
+def _mask_from_indices(n, indices) -> np.ndarray:
+    mask = np.zeros(n, dtype=bool)
+    if indices:
+        mask[np.fromiter(indices, dtype=np.int64, count=len(indices))] = True
+    return mask
+
+
+def _run(state, fn, *args) -> bool:
+    """Run one engine sub-transition; a guard trip flushes the store and
+    declines to the spec loop."""
+    try:
+        fn(*args)
+    except _Fallback:
+        state_arrays.flush(state)
+        _STATS["guard"] += 1
+        _STATS["loop"] += 1
+        return False
+    _STATS["vectorized"] += 1
+    return True
+
+
+def _decline(state) -> bool:
+    state_arrays.flush(state)
+    _STATS["loop"] += 1
+    return False
+
+
+# ---------------------------------------------------------------------------
+# process_rewards_and_penalties
+# ---------------------------------------------------------------------------
+
+def try_process_rewards_and_penalties(spec, state) -> bool:
+    if not enabled():
+        return _decline(state)
+    if spec.get_current_epoch(state) == spec.GENESIS_EPOCH:
+        _STATS["loop"] += 1
+        return False    # the spec body is a no-op early return
+    return _run(state, _phase0_rewards_and_penalties, spec, state, engine_device())
+
+
+def _base_reward_host(eff, brf, sqrt_total, brpe):
+    return eff * np.uint64(brf) // np.uint64(sqrt_total) // np.uint64(brpe)
+
+
+def _phase0_rewards_and_penalties(spec, state, dev) -> None:
+    """``get_attestation_deltas`` and the balance-update loop: the
+    attester sets and the inclusion-delay pass on the host, every
+    O(validators) delta in K10."""
+    prev_epoch = spec.get_previous_epoch(state)
+    # spec helpers first: their assertions must fire as in the loop
+    # path, before any write
+    src_atts = spec.get_matching_source_attestations(state, prev_epoch)
+    tgt_atts = spec.get_matching_target_attestations(state, prev_epoch)
+    head_atts = spec.get_matching_head_attestations(state, prev_epoch)
+    src_set = spec.get_unslashed_attesting_indices(state, src_atts)
+    tgt_set = spec.get_unslashed_attesting_indices(state, tgt_atts)
+    head_set = spec.get_unslashed_attesting_indices(state, head_atts)
+
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    n = len(cols)
+    if n == 0:
+        return
+    eff = cols["eff"]
+    _, eligible = _epoch_masks(spec, cols, int(prev_epoch))
+    total_balance = _total_active_balance(spec, cols, int(spec.get_current_epoch(state)))
+    _guard(total_balance)
+    increment = int(spec.EFFECTIVE_BALANCE_INCREMENT)
+    total_increments = total_balance // increment
+    in_leak = bool(spec.is_in_inactivity_leak(state))
+    sqrt_total = int(spec.integer_squareroot(total_balance))
+    brf, brpe = int(spec.BASE_REWARD_FACTOR), int(spec.BASE_REWARDS_PER_EPOCH)
+    prq = int(spec.PROPOSER_REWARD_QUOTIENT)
+    max_eff = int(eff.max(initial=0))
+    _guard(max_eff * brf)
+    br_max = max_eff * brf // sqrt_total // brpe
+
+    masks, att_increments, rew_bound = [], [], 0
+    for att_set in (src_set, tgt_set, head_set):
+        mask = _mask_from_indices(n, att_set)
+        att_inc = max(increment, _masked_sum(eff, mask)) // increment
+        _guard(br_max * att_inc)
+        masks.append(mask)
+        att_increments.append(att_inc)
+        rew_bound += br_max if in_leak else br_max * att_inc // total_increments
+
+    # inclusion-delay rewards: one ordered pass over the source
+    # attestations finds each attester's earliest-included attestation
+    # (the spec's min() keeps the first minimum, hence the strict <);
+    # np.add.at lets several proposer cuts land on one index
+    best_delay = np.full(n, (1 << 64) - 1, dtype=np.uint64)
+    best_proposer = np.zeros(n, dtype=np.int64)
+    for att in src_atts:
+        idxs = spec.get_attesting_indices(state, att.data, att.aggregation_bits)
+        if not idxs:
+            continue
+        ii = np.fromiter(idxs, dtype=np.int64, count=len(idxs))
+        upd = np.uint64(int(att.inclusion_delay)) < best_delay[ii]
+        sel = ii[upd]
+        best_delay[sel] = np.uint64(int(att.inclusion_delay))
+        best_proposer[sel] = int(att.proposer_index)
+    incl_rewards = np.zeros(n, dtype=np.uint64)
+    src_idx = np.nonzero(masks[0])[0]
+    if src_idx.size:
+        br_src = _base_reward_host(eff[src_idx], brf, sqrt_total, brpe)
+        pr_src = br_src // np.uint64(prq)
+        incl_rewards[src_idx] = (br_src - pr_src) // best_delay[src_idx]
+        # every attester's proposer cut could land on ONE proposer index
+        _guard(br_max + src_idx.size * (br_max // prq))
+        np.add.at(incl_rewards, best_proposer[src_idx], pr_src)
+    rew_bound += int(incl_rewards.max(initial=0))
+
+    finality_delay = int(spec.get_finality_delay(state))
+    ipq = int(spec.INACTIVITY_PENALTY_QUOTIENT)
+    pen_bound = 3 * br_max
+    if in_leak:
+        # base_pen + extra is one lane sum: bound the two together
+        _guard(brpe * br_max + max_eff * finality_delay)
+        pen_bound += brpe * br_max + max_eff * finality_delay // ipq
+    bal_bound = sa.balances_bound()
+    _guard(rew_bound, pen_bound, bal_bound + rew_bound)
+
+    scalars = Phase0Scalars(brf, sqrt_total, brpe, tuple(att_increments), total_increments,
+                            in_leak, prq, finality_delay, ipq)
+    new = phase0_deltas(
+        sa.registry_card("eff", dev),
+        state_arrays.upload(incl_rewards, dev, "incl_rewards"),
+        sa.balances_card(dev),
+        state_arrays.upload(eligible, dev, "masks"),
+        state_arrays.upload(np.stack(masks), dev, "masks"),
+        scalars)
+    sa.set_balances_card(new, bal_bound + rew_bound)
+
+
+# ---------------------------------------------------------------------------
+# process_registry_updates (host numpy, as in the JAX single-device engine)
+# ---------------------------------------------------------------------------
+
+def try_process_registry_updates(spec, state) -> bool:
+    if not enabled():
+        return _decline(state)
+    return _run(state, _registry_updates, spec, state)
+
+
+def _registry_updates(spec, state) -> None:
+    """Eligibility scans and the activation-queue sort as array ops; the
+    exit-queue recurrence of the ejections is simulated incrementally.
+    Registry writes are copy-on-write and paired with the SSZ writes."""
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    if len(cols) == 0:
+        return
+    current_epoch = int(spec.get_current_epoch(state))
+    far_future = int(spec.FAR_FUTURE_EPOCH)
+    aee = cols["aee"]
+    queue_mask = (aee == np.uint64(far_future)) \
+        & (cols["eff"] == np.uint64(int(spec.MAX_EFFECTIVE_BALANCE)))
+    cur = np.uint64(current_epoch)
+    active_cur = (cols["act"] <= cur) & (cur < cols["ext"])
+    eject_mask = active_cur & (cols["eff"] <= np.uint64(int(spec.config.EJECTION_BALANCE)))
+    # stamped-this-epoch entries carry aee == current_epoch + 1 > finalized
+    # and unstamped candidates FAR_FUTURE_EPOCH: neither passes the
+    # finalized bound, so this scan commutes with the stamps below
+    eligible_mask = (aee <= np.uint64(int(state.finalized_checkpoint.epoch))) \
+        & (cols["act"] == np.uint64(far_future))
+    active_count = int(active_cur.sum(dtype=np.int64))
+    _registry_apply_idx(spec, state, sa, cols, np.nonzero(queue_mask)[0],
+                        np.nonzero(eject_mask)[0], np.nonzero(eligible_mask)[0],
+                        active_count)
+
+
+def _registry_apply_idx(spec, state, sa, cols, queue_idx, eject_idx, eligible_idx,
+                        active_count) -> None:
+    """Churn-ordered resolution of the registry scans: activation-queue
+    stamps, the per-ejection exit-queue recurrence, and the
+    (activation_eligibility_epoch, index)-sorted dequeue."""
+    validators = sequence_items(state.validators)
+    current_epoch = int(spec.get_current_epoch(state))
+    far_future = int(spec.FAR_FUTURE_EPOCH)
+    wcols = None
+
+    def writable(*fields):
+        # copy-on-write BEFORE the paired SSZ writes: the generation bump
+        # would otherwise read as a stale cell and re-extract
+        nonlocal wcols, cols
+        wcols = sa.registry_writable(*fields)
+        cols = wcols
+        return wcols
+
+    if queue_idx.size:
+        stamp = current_epoch + 1
+        aee = writable("aee")["aee"]
+        for i in queue_idx.tolist():
+            validators[i].activation_eligibility_epoch = stamp
+        aee[queue_idx] = np.uint64(stamp)
+
+    # ejections in index order; the churn limit is constant across them
+    # (assigned exit epochs are all in the future)
+    churn = max(int(spec.config.MIN_PER_EPOCH_CHURN_LIMIT),
+                active_count // int(spec.config.CHURN_LIMIT_QUOTIENT))
+    if eject_idx.size:
+        w = writable("ext", "wd")
+        ext, wd = w["ext"], w["wd"]
+        # the exit-queue seed is a property of the full exit column
+        exited = ext[ext != np.uint64(far_future)]
+        queue_epoch = current_epoch + 1 + int(spec.MAX_SEED_LOOKAHEAD)
+        if exited.size:
+            queue_epoch = max(queue_epoch, int(exited.max()))
+        queue_churn = int((ext == np.uint64(queue_epoch)).sum(dtype=np.int64))
+        delay = int(spec.config.MIN_VALIDATOR_WITHDRAWABILITY_DELAY)
+        _guard(queue_epoch + eject_idx.size + delay)
+        for i in eject_idx.tolist():
+            if int(ext[i]) != far_future:
+                continue
+            if queue_churn >= churn:
+                queue_epoch += 1
+                queue_churn = 0
+            queue_churn += 1
+            ext[i] = np.uint64(queue_epoch)
+            wd[i] = np.uint64(queue_epoch + delay)
+            validators[i].exit_epoch = queue_epoch
+            validators[i].withdrawable_epoch = queue_epoch + delay
+
+    # activations: eligibles sorted by (activation_eligibility_epoch,
+    # index), dequeued up to the churn limit
+    idx = eligible_idx
+    if idx.size:
+        aee = cols["aee"]
+        take = idx[np.lexsort((idx, aee[idx]))][:churn].tolist()
+        if take:
+            activation_epoch = current_epoch + 1 + int(spec.MAX_SEED_LOOKAHEAD)
+            act = writable("act")["act"]
+            for i in take:
+                validators[i].activation_epoch = activation_epoch
+                act[i] = np.uint64(activation_epoch)
+
+    if wcols is not None:
+        sa.mark_registry_committed()
+
+
+# ---------------------------------------------------------------------------
+# process_slashings
+# ---------------------------------------------------------------------------
+
+def try_process_slashings(spec, state) -> bool:
+    if not enabled():
+        return _decline(state)
+    return _run(state, _slashings, spec, state, int(spec.PROPORTIONAL_SLASHING_MULTIPLIER),
+                engine_device())
+
+
+def _slashings(spec, state, multiplier, dev) -> None:
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    if len(cols) == 0:
+        return
+    epoch = int(spec.get_current_epoch(state))
+    total_balance = _total_active_balance(spec, cols, epoch)
+    _guard(total_balance)
+    slashed_sum = sum(int(s) for s in sequence_items(state.slashings))
+    adjusted = min(slashed_sum * multiplier, total_balance)
+    increment = int(spec.EFFECTIVE_BALANCE_INCREMENT)
+    target_epoch = epoch + int(spec.EPOCHS_PER_SLASHINGS_VECTOR) // 2
+    _guard(target_epoch)
+    target = cols["sl"] & (cols["wd"] == np.uint64(target_epoch))
+    if not target.any():
+        return
+    _guard((int(cols["eff"].max(initial=0)) // increment) * adjusted)
+    bound = sa.balances_bound()     # a decrease keeps the bound
+    new = slashings(sa.registry_card("eff", dev), sa.balances_card(dev),
+                    state_arrays.upload(target, dev, "masks"), increment, adjusted,
+                    total_balance)
+    sa.set_balances_card(new, bound)
+
+
+# ---------------------------------------------------------------------------
+# process_effective_balance_updates
+# ---------------------------------------------------------------------------
+
+def try_process_effective_balance_updates(spec, state) -> bool:
+    if not enabled():
+        return _decline(state)
+    return _run(state, _effective_balance_updates, spec, state, engine_device())
+
+
+def _effective_balance_updates(spec, state, dev) -> None:
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    if len(cols) == 0:
+        return
+    increment = int(spec.EFFECTIVE_BALANCE_INCREMENT)
+    hysteresis_increment = increment // int(spec.HYSTERESIS_QUOTIENT)
+    down = hysteresis_increment * int(spec.HYSTERESIS_DOWNWARD_MULTIPLIER)
+    up = hysteresis_increment * int(spec.HYSTERESIS_UPWARD_MULTIPLIER)
+    eff = cols["eff"]
+    # the store's balances include this transition's deferred writes,
+    # which is what the spec loop would read
+    _guard(sa.balances_bound() + down, int(eff.max(initial=0)) + up)
+    new_c = effective_balance(sa.balances_card(dev), sa.registry_card("eff", dev),
+                              increment, down, up, int(spec.MAX_EFFECTIVE_BALANCE))
+    new_eff = state_arrays.download(new_c, "eff")
+    changed = np.nonzero(eff != new_eff)[0]
+    if changed.size == 0:
+        return
+    sa.registry_writable("eff")["eff"] = new_eff
+    validators = sequence_items(state.validators)
+    for i in changed.tolist():
+        validators[i].effective_balance = int(new_eff[i])
+    sa.mark_registry_committed(card={"eff": new_c})

@@ -11,6 +11,7 @@ from .types import (
     ByteVector, ByteList,
     Bytes1, Bytes4, Bytes8, Bytes20, Bytes32, Bytes48, Bytes96,
     Bitvector, Bitlist, Vector, List, Container, Union,
+    sequence_items, replace_basic_items,
 )
 from .impl import serialize, hash_tree_root, uint_to_bytes, copy, deserialize
 from .merkle import merkleize_chunks, mix_in_length, mix_in_selector, zero_hashes
@@ -21,6 +22,7 @@ __all__ = [
     "ByteVector", "ByteList",
     "Bytes1", "Bytes4", "Bytes8", "Bytes20", "Bytes32", "Bytes48", "Bytes96",
     "Bitvector", "Bitlist", "Vector", "List", "Container", "Union",
+    "sequence_items", "replace_basic_items",
     "serialize", "hash_tree_root", "uint_to_bytes", "copy", "deserialize",
     "merkleize_chunks", "mix_in_length", "mix_in_selector", "zero_hashes",
 ]

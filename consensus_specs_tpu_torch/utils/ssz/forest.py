@@ -17,9 +17,10 @@ The module also carries the columnar container-root path
 ``List[Validator, ...]``-style sequence come from vectorized field
 serialization plus batched layer hashes over an ``(N, fields, 32)``
 chunk cube, instead of N per-object merkleizations.  A column provider
-(:func:`set_column_provider`) may hand it committed uint64 columns; the
-port registers none yet (the state column store comes with the epoch
-engine).
+(:func:`set_column_provider`) may hand it committed uint64 columns: the
+state column store registers ``peek_registry`` (``state/arrays.py``), so
+a full build of a registry whose columns the store holds skips the
+per-field walk of the typed views.
 """
 from contextlib import contextmanager
 
@@ -213,7 +214,7 @@ def _container_root_bytes(items, et, owner) -> bytes:
 
 
 # Maps an owning sequence to its committed ``{ssz field name: uint64
-# column}`` view, or None.  No provider is registered in the port yet.
+# column}`` view, or None (registered by ``state/arrays.py``).
 _column_provider = None
 
 

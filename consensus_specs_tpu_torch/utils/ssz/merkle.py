@@ -344,6 +344,14 @@ class IncrementalTree:
                 continue
             self._rehash_level(level, [n_parent - 1])
 
+    def set_leaves(self, data) -> None:
+        """Replace the whole leaf layer with a packed byte buffer (right-
+        padded to whole chunks) and rebuild the upper levels through
+        :func:`hash_layer`: the chunk-level commit of a column write."""
+        if (len(data) + 31) // 32 > (1 << self.depth):
+            raise ValueError("chunk count beyond tree limit")
+        self._build(data)
+
     def copy(self) -> "IncrementalTree":
         new = object.__new__(IncrementalTree)
         new.depth = self.depth

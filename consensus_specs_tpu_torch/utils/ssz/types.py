@@ -1,10 +1,9 @@
 """SSZ type system: typed values with serialize / hash_tree_root.
 
 Counterpart of ``consensus_specs_tpu/utils/ssz/types.py`` without its
-telemetry counters, and without the column-store hooks of the
-vectorized epoch engine (the state column store's copy hook,
-``sequence_items``, ``replace_basic_items``), which the port does not
-carry yet.  A from-scratch equivalent of the reference's ``remerkleable``
+telemetry counters.  The state column store (``state/arrays.py``) reads
+through ``sequence_items``, commits through ``replace_basic_items`` and
+rides along ``Container.copy``.  A from-scratch equivalent of the reference's ``remerkleable``
 dependency (reference: ``tests/core/pyspec/eth2spec/utils/ssz/
 ssz_typing.py`` re-exports; normative rules in
 ``ssz/simple-serialize.md``). Provides:
@@ -1057,6 +1056,14 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         return root
 
     def copy(self):
+        # A state carrying a column store (state/arrays.py) commits its
+        # pending column writes before the field snapshot, so the copy's
+        # SSZ content matches, and hands the store's columns to the copy
+        # after it, copy-on-write.  Duck-typed on the attribute: this
+        # module needs no upward import.
+        store = self.__dict__.get("_state_arrays")
+        if store is not None:
+            store.commit_for_copy()
         new = object.__new__(type(self))
         for f, _, _, immutable in type(self)._plan()[0]:
             fv = getattr(self, f)
@@ -1067,6 +1074,8 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         # field copies have identical roots, so the memoized root carries over
         object.__setattr__(new, "_root_cache",
                            object.__getattribute__(self, "_root_cache"))
+        if store is not None:
+            store.fork(new)
         return new
 
     def __eq__(self, other):
@@ -1188,6 +1197,58 @@ class Union(UnionBase, metaclass=_ParamMeta):
                      (UnionBase,), {"options": tuple(params)})
             _union_cache[key] = t
         return t
+
+
+# ---------------------------------------------------------------------------
+# columnar access (state/arrays.py: the state column store)
+# ---------------------------------------------------------------------------
+
+def sequence_items(seq):
+    """The backing element list of a List/Vector, uncopied, for columnar
+    extraction.  Read-only: every write goes through the sequence API or
+    :func:`replace_basic_items`, so dirty tracking stays exact."""
+    if not isinstance(seq, _SequenceBase):
+        raise TypeError(f"sequence_items: want List/Vector, got {type(seq)}")
+    return seq._items
+
+
+def replace_basic_items(seq, items, packed=None) -> None:
+    """Swap every element of a basic-element List/Vector at once.
+
+    ``items``: already-coerced ``elem_type`` instances.  ``packed``, when
+    given, is their little-endian serialization (``column.astype('<u8')
+    .tobytes()``): the chunk tree is then rebuilt from it level by level
+    through the batched hasher.  Without it the tree is dropped and
+    rebuilt on the next root.  Bumps the mutation generation."""
+    et = type(seq).elem_type
+    if not issubclass(et, BasicValue):
+        raise TypeError("replace_basic_items: basic element types only")
+    limit = getattr(type(seq), "limit", 0)
+    length = getattr(type(seq), "length", 0)
+    if length and len(items) != length:
+        raise ValueError(f"{type(seq).__name__}: need {length} elements")
+    if limit and len(items) > limit:
+        raise ValueError(f"{type(seq).__name__}: {len(items)} exceeds limit")
+    if items and not (isinstance(items[0], et) and isinstance(items[-1], et)):
+        raise TypeError(f"replace_basic_items: want {et.__name__} elements")
+    if packed is not None and len(packed) != len(items) * et.byte_length:
+        # checked before the swap: a refused commit leaves the sequence
+        # (items, tree, memo) untouched
+        raise ValueError("replace_basic_items: packed length mismatch")
+    object.__setattr__(seq, "_items", list(items))
+    if packed is None:
+        seq._drop_tree()
+        return
+    tree = getattr(seq, "_tree", None)
+    if tree is None:
+        object.__setattr__(seq, "_tree",
+                           IncrementalTree(packed, seq._limit_chunks()))
+    else:
+        tree.set_leaves(packed)
+    object.__setattr__(seq, "_dirty", set())
+    seq._root_memo = None
+    seq._gen = getattr(seq, "_gen", 0) + 1
+    _notify_owner(seq)
 
 
 # Bottom import: forest.py needs the class definitions above (it walks

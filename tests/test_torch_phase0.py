@@ -3,9 +3,11 @@ package's, minimal preset, 64 validators.
 
 Genesis and blocks with attestations are built by the JAX package's
 ``test_infra`` and carried over by SSZ.  Over a run of slots that crosses
-three epoch boundaries, the port's spec loops and the JAX package's
-vectorized epoch engine end every block at identical post-state roots
-(tolerance 0: bytes).  Both run with ``bls_active`` off there: signatures
+three epoch boundaries, the port (once with its vectorized epoch engine on
+the plain versions, ``epoch_kernels.use_vectorized("cpu")``, and once
+with its spec loops) and the JAX package's vectorized epoch engine end
+every block at identical post-state roots (tolerance 0: bytes).  Both run
+with ``bls_active`` off there: signatures
 do not change the post-state.  The port then verifies signatures on its
 torch backend (``bls.use_torch("cpu")``: the plain K1-K6) in exactly two
 transitions: a valid block flushes as one product pairing, and a block
@@ -22,6 +24,7 @@ from consensus_specs_tpu.test_infra.genesis import create_genesis_state
 from consensus_specs_tpu.utils import bls as jax_bls
 from consensus_specs_tpu.utils import ssz as jax_ssz
 from consensus_specs_tpu_torch.forks import build_spec
+from consensus_specs_tpu_torch.ops import epoch_kernels
 from consensus_specs_tpu_torch.utils import bls, ssz
 from tests._torch_port import one_torch_thread  # noqa: F401
 
@@ -85,17 +88,33 @@ def chain(specs):
     return out
 
 
-def test_roots_match_across_epoch_boundaries(specs, chain):
+@pytest.mark.parametrize("engine", ["vectorized", "loops"])
+def test_roots_match_across_epoch_boundaries(specs, chain, engine):
     jspec, spec = specs
+    if engine == "vectorized":
+        epoch_kernels.use_vectorized("cpu")
+    else:
+        epoch_kernels.use_loops()
+    epoch_kernels.reset_stats()
     state = carry(spec, chain[0][1], "BeaconState")
     assert bytes(ssz.hash_tree_root(state)) == bytes(jax_ssz.hash_tree_root(chain[0][1]))
     n_att = 0
-    for signed_block, jax_post in chain[1:]:
-        block = carry(spec, signed_block, "SignedBeaconBlock")
-        n_att += len(block.message.body.attestations)
-        spec.state_transition(state, block)
-        assert bytes(ssz.hash_tree_root(state)) == bytes(jax_ssz.hash_tree_root(jax_post))
-        assert ssz.serialize(state) == jax_ssz.serialize(jax_post)
+    try:
+        for signed_block, jax_post in chain[1:]:
+            block = carry(spec, signed_block, "SignedBeaconBlock")
+            n_att += len(block.message.body.attestations)
+            spec.state_transition(state, block)
+            assert bytes(ssz.hash_tree_root(state)) == bytes(jax_ssz.hash_tree_root(jax_post))
+            assert ssz.serialize(state) == jax_ssz.serialize(jax_post)
+        stats = epoch_kernels.stats()
+    finally:
+        epoch_kernels.use_auto()
+    # three boundaries x four sub-transitions; the first boundary's
+    # rewards are the genesis no-op, which the spec body handles
+    if engine == "vectorized":
+        assert stats == {"vectorized": 11, "loop": 1, "guard": 0}
+    else:
+        assert stats == {"vectorized": 0, "loop": 12, "guard": 0}
     assert state.slot == SLOTS and n_att >= 2 * (SLOTS - 1)
     # the run reached rewards (second boundary) and justification (third)
     assert len(set(state.balances)) > 1
