@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, verify a
 mainnet-shaped block, run a mainnet phase0 block through
 ``state_transition``, run a block's blobs through the KZG library and
-PeerDAS recovery, run a mainnet phase0 epoch transition, time.
+PeerDAS recovery, run a mainnet phase0 epoch transition, run a mainnet
+Altair block and an Altair epoch transition, time.
 
     python3 chip_smoke.py [--validators N]
 
@@ -79,14 +80,52 @@ Phases, each fatal on failure (no phase's failure is caught):
    and the engine give identical roots, leaking and not.  Stages, copies
    and K10-K12 per launch (CUDA events, beside bounds and plain versions)
    are timed;
-11. print the ``kernels`` line (K1-K12), the card line and the result line.
+11. time K10-K12 per launch at the leaking run's arguments (CUDA events,
+   queued ahead and back to back) beside their bounds and plain versions;
+12. hold K13 ``altair_deltas`` and K14 ``inactivity_updates``
+   byte-identical to their plain versions on the card at 1, 1000 and 2^20
+   lanes, leaking and not, on seeded edge columns (every flag
+   combination, eligible and not, active and not, zero balances, clamps
+   at the first, a middle and the last of K13's four pairs, scores 0, 1
+   and the recovery rate, lane products just under 2^63);
+13. (run right after phase 6, so that its 2^20-validator state is not
+   held through phases 7-12) a mainnet Altair block through the port's
+   ``state_transition`` on the card (``build_spec("altair", "mainnet")``):
+   phase 6's 2^20-validator state through ``upgrade_to_altair``, a block at slot 3 with the 128
+   attestations of phase 6's shape (participation flags and the proposer
+   reward), the current sync committee's aggregate with a seeded ~1/16 of
+   its 512 bits off, the proposer signature and the randao reveal - 131
+   RLC items.  It must pass with one product pairing, the post-state's
+   hashlib root must equal the block's ``state_root``, a forged
+   sync-aggregate signature must be named alone and a wrong
+   ``state_root`` must raise; every K1-K4 call and the first K5 call of
+   every row count are held against their plain versions; the upgrade,
+   ``process_attestation``, ``process_sync_aggregate`` and the flush are
+   timed;
+14. a mainnet Altair epoch transition: phase 10's untouched base state
+   through ``upgrade_to_altair`` (``translate_participation`` turns its
+   2048 pending attestations into the previous epoch's flags), seeded
+   inactivity scores (some at the scale of a long leak) and current-epoch
+   flags, run through ``process_slots`` once not leaking and once leaking.
+   Each run launches K14, K13, K11 and K12 once, commits 5
+   sub-transitions on the engine with no loop run and no guard trip,
+   moves balances, effective balances and inactivity scores once each
+   way and the previous flags up once, ends at the root the plain
+   versions give on a ``fork_state`` copy and at the hashlib root of a
+   fresh deserialization, and every kernel call is held against its
+   plain version; at 4,096 validators the spec loops and the engine give
+   identical roots, leaking and not; K13 and K14 are timed per launch;
+15. print the ``kernels`` line (K1-K14), the card line and the result line.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
 KeyValidate (decompression and subgroup check, ~31 ms of python per key,
 paid once per registry key, not per block) dominates set-up otherwise;
-the 2^20 validators of phases 6 and 10 cycle over those keys.  The device
-work per block does not depend on the number of distinct keys.
+the 2^20 validators of phases 6, 10, 13 and 14 cycle over those keys.  The
+device work per block does not depend on the number of distinct keys; on
+the host, the cycled keys also keep the spec's linear pubkey search in
+``process_sync_aggregate`` cheap (every key occurs within the first 1,024
+entries), which is why the port replaces it by one first-occurrence map.
 """
 import argparse
 import hashlib
@@ -386,8 +425,9 @@ def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
 
 def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     """Phase 6: a mainnet phase0 block through ``state_transition`` on
-    ``dev``.  Returns the K5 entry of the ``kernels`` line and the launch
-    counts of the transition."""
+    ``dev``.  Returns the K5 entry of the ``kernels`` line, the launch
+    counts of the transition and the pre-state (slot 0, untouched), which
+    phase 13 upgrades to Altair."""
     import numpy as np
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.forks import build_spec
@@ -647,7 +687,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
             "library_ms": None, "rows": n, "h2d_ms": small_h2d, "d2h_ms": small_d2h,
             "hashlib_ms_at_cold_max": hl_big_ms, "cold_max_rows": int(big.shape[0]),
             "cold_max_ms": big_ms, "cold_kernel_ms": cold_kernel_ms,
-            "cold_root_s": t_cold, "hashlib_root_s": t_hl}, launches
+            "cold_root_s": t_cold, "hashlib_root_s": t_hl}, launches, state
 
 
 def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
@@ -1125,15 +1165,35 @@ EPOCH_REPLACES = {
     "phase0_deltas": "consensus_specs_tpu/ops/epoch_kernels.py:205",
     "effective_balance": "consensus_specs_tpu/ops/epoch_kernels.py:240",
     "slashings": "consensus_specs_tpu/ops/epoch_kernels.py:252",
+    "altair_deltas": "consensus_specs_tpu/ops/epoch_kernels.py:169",
+    "inactivity_updates": "consensus_specs_tpu/ops/epoch_kernels.py:192",
 }
 SUB_TRANSITIONS = ("process_rewards_and_penalties", "process_registry_updates",
                    "process_slashings", "process_effective_balance_updates")
+# what one epoch transition on the card must show, per fork: the kernels
+# it launches, the engine's sub-transitions, the host columns that cross
+# exactly once (and the commits), and the spec helper that builds the
+# attester sets
+EPOCH_PATHS = {
+    "phase0": {"kernels": EPOCH_KERNELS, "subs": SUB_TRANSITIONS,
+               "once": ("h2d.balances", "d2h.balances", "h2d.eff", "d2h.eff"),
+               "commits": 1, "sets": "get_unslashed_attesting_indices"},
+    "altair": {"kernels": ("inactivity_updates", "altair_deltas", "effective_balance",
+                           "slashings"),
+               "subs": ("process_inactivity_updates",) + SUB_TRANSITIONS,
+               "once": ("h2d.balances", "d2h.balances", "h2d.eff", "d2h.eff",
+                        "h2d.inactivity_scores", "d2h.inactivity_scores",
+                        "h2d.participation_previous"),
+               "commits": 2, "sets": "get_unslashed_participating_indices"},
+}
 
 
 def epoch_plain(ek) -> dict:
     return {"phase0_deltas": ek.phase0_deltas_plain,
             "effective_balance": ek.effective_balance_plain,
-            "slashings": ek.slashings_plain}
+            "slashings": ek.slashings_plain,
+            "altair_deltas": ek.altair_deltas_plain,
+            "inactivity_updates": ek.inactivity_updates_plain}
 
 
 def epoch_kernel_checks(torch, dev, n_lanes: int) -> int:
@@ -1281,7 +1341,8 @@ def leaking(spec, state):
 
 def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     """One epoch transition of a copy of ``base`` through ``process_slots``
-    on the card, every K10-K12 call recorded; the same epoch again on a
+    on the card, every epoch-kernel call recorded (K10-K12 on phase0,
+    K14, K13, K11 and K12 on Altair); the same epoch again on a
     ``fork_state`` copy with the plain versions on the card; the post-state
     root on K5 against the hashlib root of a fresh deserialization."""
     from consensus_specs_tpu_torch import _build
@@ -1295,12 +1356,14 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     replay = state_arrays.fork_state(base)
     t_copy = time.perf_counter() - t0
     in_leak = bool(spec.is_in_inactivity_leak(state))
+    path = EPOCH_PATHS[spec.fork]
+    kernels, subs = path["kernels"], path["subs"]
     ek.use_vectorized(dev)
     host, card_clock = StageClock(), StageClock(sync=torch.cuda.synchronize)
     for name in ("process_justification_and_finalization", "process_epoch", "process_slot",
-                 "get_unslashed_attesting_indices"):
+                 path["sets"]):
         host.wrap(spec, name)
-    for name in EPOCH_KERNELS:
+    for name in kernels:
         card_clock.wrap(ek, name)
     for name in ("upload", "download"):
         card_clock.wrap(state_arrays, name)
@@ -1318,9 +1381,9 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
                 split[name] = ((time.perf_counter() - t0) * 1e3,
                                sum(card_clock.ms.values()) - c0)
         return timed
-    for name in SUB_TRANSITIONS:
+    for name in subs:
         setattr(spec, name, splitting(name, getattr(spec, name)))
-    recorders = [CallRecorder(torch, ek, name) for name in EPOCH_KERNELS]
+    recorders = [CallRecorder(torch, ek, name) for name in kernels]
     ek.reset_stats()
     state_arrays.reset_stats()
     _build.reset_launches()
@@ -1333,18 +1396,21 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     t_slots = (time.perf_counter() - t0) * 1e3
     for r in reversed(recorders):
         r.__exit__()
-    launches = {k: _build.launches[k] for k in EPOCH_KERNELS}
-    for name in SUB_TRANSITIONS:
+    launches = {k: _build.launches[k] for k in kernels}
+    for name in subs:
         delattr(spec, name)
     card_clock.restore()
     host.restore()
     stats, copies = ek.stats(), state_arrays.stats()
-    check(all(launches[k] >= 1 for k in EPOCH_KERNELS),
-          f"{tag}: a kernel of the epoch was not launched: {launches}")
-    check(stats == {"vectorized": 4, "loop": 0, "guard": 0},
-          f"{tag}: expected 4 vectorized commits, 0 loop runs, 0 guard trips: {stats}")
-    for key in ("h2d.balances", "d2h.balances", "h2d.eff", "d2h.eff", "commits"):
+    check(all(launches[k] == 1 for k in kernels),
+          f"{tag}: each kernel of the epoch must launch once: {launches}")
+    check(stats == {"vectorized": len(subs), "loop": 0, "guard": 0},
+          f"{tag}: expected {len(subs)} vectorized commits, 0 loop runs, 0 guard trips: "
+          f"{stats}")
+    for key in path["once"]:
         check(copies.get(key) == 1, f"{tag}: {key} = {copies.get(key)}, expected 1: {copies}")
+    check(copies.get("commits") == path["commits"],
+          f"{tag}: commits = {copies.get('commits')}, expected {path['commits']}: {copies}")
 
     merkle.reset_stats()
     t0 = time.perf_counter()
@@ -1355,8 +1421,8 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
 
     # the same epoch on the fork with the plain versions on the card
     plain = epoch_plain(ek)
-    saved = {k: getattr(ek, k) for k in EPOCH_KERNELS}
-    for k in EPOCH_KERNELS:
+    saved = {k: getattr(ek, k) for k in kernels}
+    for k in kernels:
         setattr(ek, k, plain[k])
     try:
         t0 = time.perf_counter()
@@ -1364,7 +1430,7 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
         torch.cuda.synchronize()
         t_plain = (time.perf_counter() - t0) * 1e3
     finally:
-        for k in EPOCH_KERNELS:
+        for k in kernels:
             setattr(ek, k, saved[k])
     check(bytes(ssz.hash_tree_root(replay)) == root,
           f"{tag}: the plain versions on the card give another post-state root")
@@ -1374,7 +1440,7 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     err = {r.name: r.hold(plain[r.name]) for r in recorders}
 
     ms, cm = host.ms, card_clock.ms
-    kernel_ms = {k: cm.get(k, 0.0) for k in EPOCH_KERNELS}
+    kernel_ms = {k: cm.get(k, 0.0) for k in kernels}
     copy_ms = cm.get("upload", 0.0) + cm.get("download", 0.0)
     crossings = {k: v for k, v in copies.items() if k.startswith(("h2d.", "d2h."))}
     other_ms = (ms["process_epoch"] - ms["process_justification_and_finalization"]
@@ -1385,33 +1451,34 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
           f"{t_slots - ms['process_slot'] - ms['process_epoch']:.2f}; in process_epoch: "
           f"justification and finalization {ms['process_justification_and_finalization']:.2f}, "
           + ", ".join(f"{n.replace('process_', '')} {split[n][0]:.2f} (card {split[n][1]:.2f}, "
-                      f"host {split[n][0] - split[n][1]:.2f})" for n in SUB_TRANSITIONS)
+                      f"host {split[n][0] - split[n][1]:.2f})" for n in subs)
           + f", other sub-transitions {other_ms:.2f}; card time = synchronized kernel wrappers ("
           + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items())
           + f") and host/card copies {copy_ms:.2f} ({crossings}); commit (_write_u64_list) "
-          f"{ms.get('_write_u64_list', 0.0):.2f}; get_unslashed_attesting_indices "
-          f"{ms['get_unslashed_attesting_indices']:.2f} (all calls) on {card}")
+          f"{ms.get('_write_u64_list', 0.0):.2f}; {path['sets']} "
+          f"{ms.get(path['sets'], 0.0):.2f} (all calls) on {card}")
     print(f"epoch {tag}: launches {launches}, engine {stats}, copies {copies}; post-state root "
           f"{root.hex()} on K5 in {t_root:.2f} ms (pairs by K5 {root_stats['pairs_batched']}, by "
           f"hashlib {root_stats['pairs_hashlib']}) equal to the hashlib root of a fresh "
           f"deserialization ({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize) and to "
           f"the plain versions' run on the card ({t_plain:.2f} ms); set-up: two forks "
-          f"{t_copy:.2f} s; every K10-K12 call held against its plain version")
-    sub_ms = {n: split[n] for n in SUB_TRANSITIONS}
+          f"{t_copy:.2f} s; every call of {list(kernels)} held against its plain version")
+    sub_ms = {n: split[n] for n in subs}
     return {"launches": launches, "err": err, "calls": {r.name: r.calls for r in recorders},
             "slots_ms": t_slots, "epoch_ms": ms["process_epoch"], "sub_ms": sub_ms,
             "kernel_ms": kernel_ms, "copy_ms": copy_ms, "root_ms": t_root,
             "plain_slots_ms": t_plain, "in_leak": in_leak}
 
 
-def reduced_epoch_leg(torch, dev, spec, ssz, np, pks, n: int):
-    """The same construction at ``n`` validators: the port's spec loops
-    and its engine on the card give identical post-state roots, not
-    leaking and leaking."""
+def reduced_epoch_leg(torch, dev, spec, base, n: int):
+    """The same construction at ``n`` validators (``base``): the port's
+    spec loops and its engine on the card give identical post-state
+    roots, not leaking and leaking."""
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import ssz
     t0 = time.perf_counter()
-    base = epoch_state(spec, ssz, np, pks, n, seed=n)
+    subs = len(EPOCH_PATHS[spec.fork]["subs"])
     out = []
     for pre in (base, leaking(spec, base)):
         roots = {}
@@ -1424,16 +1491,17 @@ def reduced_epoch_leg(torch, dev, spec, ssz, np, pks, n: int):
             ek.reset_stats()
             spec.process_slots(s, EPOCH_SLOT + 1)
             st = ek.stats()
-            want = {"vectorized": 4, "loop": 0, "guard": 0} if engine == "vectorized" \
-                else {"vectorized": 0, "loop": 4, "guard": 0}
+            want = {"vectorized": subs, "loop": 0, "guard": 0} if engine == "vectorized" \
+                else {"vectorized": 0, "loop": subs, "guard": 0}
             check(st == want, f"reduced leg ({engine}): engine counters {st}")
             roots[engine] = bytes(ssz.hash_tree_root(s))
         check(roots["loops"] == roots["vectorized"],
               f"reduced leg: loops and the engine differ at {n} validators")
         out.append(bool(spec.is_in_inactivity_leak(pre)))
     ek.use_vectorized(dev)
-    print(f"reduced leg: {n} validators, leak {out}: the spec loops and the engine on the card "
-          f"give identical post-state roots ({time.perf_counter() - t0:.2f} s)")
+    print(f"reduced leg ({spec.fork}): {n} validators, leak {out}: the spec loops and the "
+          f"engine on the card give identical post-state roots "
+          f"({time.perf_counter() - t0:.2f} s)")
 
 
 def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
@@ -1475,35 +1543,44 @@ def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
     runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two runs must be one not leaking and one leaking")
-    del base
-    reduced_epoch_leg(torch, dev, spec, ssz, np, pks, REDUCED_VALIDATORS)
+    n = REDUCED_VALIDATORS
+    reduced_epoch_leg(torch, dev, spec, epoch_state(spec, ssz, np, pks, n, seed=n), n)
     bls.bls_active = True
-    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold}
+    # phase 14 upgrades the untouched base to Altair
+    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold, "base": base}
 
 
-def epoch_entries(torch, card, phase) -> list:
-    """The K10-K12 entries of the ``kernels`` line, timed per launch with
-    CUDA events at the leaking run's arguments, beside their bounds
-    (bytes and operations this run's data needs) and their plain
-    versions on the card."""
+def epoch_bound_counts(ek, name, args, in_leak) -> tuple:
+    """(bytes, operations) that this call's data needs (``ek.*_bytes``,
+    ``ek.*_ops``)."""
+    if name == "phase0_deltas":
+        return ek.phase0_deltas_bytes(args[3]), ek.phase0_deltas_ops(args[3], in_leak)
+    if name == "effective_balance":
+        n = args[0].numel()
+        return ek.effective_balance_bytes(n), ek.effective_balance_ops(n)
+    if name == "slashings":
+        return ek.slashings_bytes(args[2]), ek.slashings_ops(args[2])
+    if name == "altair_deltas":
+        return ek.altair_deltas_bytes(args[4], args[3], args[5]), ek.altair_deltas_ops(args[4])
+    return ek.inactivity_updates_bytes(args[2]), ek.inactivity_updates_ops(args[2])
+
+
+def epoch_entries(torch, card, phase, names=EPOCH_KERNELS) -> list:
+    """The ``kernels`` line's entries of the epoch kernels ``names``, timed
+    per launch with CUDA events at the leaking run's arguments, beside
+    their bounds (bytes and operations this run's data needs) and their
+    plain versions on the card."""
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     run = phase["runs"]["leaking"]
     plain = epoch_plain(ek)
     out = []
-    for name in EPOCH_KERNELS:
+    for name in names:
         args = run["calls"][name][0][0]
         fn = getattr(ek, name)
         ms = queued_ms(torch, lambda: fn(*args))
         back_ms = cuda_ms(torch, lambda: fn(*args), reps=20)
         p_ms = plain_ms(torch, lambda: plain[name](*args))
-        if name == "phase0_deltas":
-            nbytes = ek.phase0_deltas_bytes(args[3])
-            ops = ek.phase0_deltas_ops(args[3], run["in_leak"])
-        elif name == "effective_balance":
-            nbytes, ops = ek.effective_balance_bytes(args[0].numel()), \
-                ek.effective_balance_ops(args[0].numel())
-        else:
-            nbytes, ops = ek.slashings_bytes(args[2]), ek.slashings_ops(args[2])
+        nbytes, ops = epoch_bound_counts(ek, name, args, run["in_leak"])
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         launches = max(r["launches"][name] for r in phase["runs"].values())
         err = max(phase["err"], max(r["err"][name] for r in phase["runs"].values()))
@@ -1522,10 +1599,351 @@ def epoch_entries(torch, card, phase) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 5: the Altair runtime (a mainnet Altair block with its sync
+# aggregate, an Altair epoch transition)
+# ---------------------------------------------------------------------------
+
+ALTAIR_EPOCH_KERNELS = ("inactivity_updates", "altair_deltas")
+
+
+def altair_kernel_checks(torch, dev, n_lanes: int) -> int:
+    """Phase 12: K13 and K14 byte-identical to their plain versions on the
+    card, at 1, 1000 and ``n_lanes`` lanes, leaking and not, on seeded
+    columns with the edges: every combination of the three flag bits,
+    eligible and not, active (unslashed) and not, zero balances,
+    penalties that clamp at the first, a middle and the last pair, scores
+    at 0, 1 and the recovery rate, and lane products just under 2^63
+    (``eff x score``, ``base x weight x participating increments``,
+    balance plus the rewards).  Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    gwei, err, limit = 10**9, 0, 2**63 - 1
+    bias, rec, denom = 4, 16, 4 * 50331648
+    for n in (1, 1000, n_lanes):
+        rng = np.random.default_rng(n + 5)
+        eff = rng.integers(0, 33, n, dtype=np.int64) * gwei
+        bal = rng.integers(0, 40 * gwei, n, dtype=np.int64)
+        scores = rng.integers(0, 100, n, dtype=np.int64)
+        part = rng.integers(0, 8, n).astype(np.uint8)
+        elig, active = rng.random(n) < 0.8, rng.random(n) < 0.85
+        k = min(n, 8)
+        part[:k] = np.arange(k)                      # every flag combination
+        elig[:k], active[:k], bal[:k], eff[:k] = True, True, 0, 32 * gwei
+        scores[:3] = [0, 1, rec][:min(3, n)]
+        if n > 16:
+            eff[8:14] = 32 * gwei
+            elig[8:14], active[8:14] = True, True
+            bal[8], part[8] = 1, 0                   # clamps at the first pair (source)
+            bal[9], part[9], scores[9] = 1, 5, 0     # at the middle pair (target), head after
+            bal[10], part[10], scores[10] = 10 * gwei, 5, 2**27   # at the last (inactivity)
+            scores[11], part[11] = limit // (32 * gwei), 0        # eff x score just under 2^63
+            active[12], elig[13] = False, False      # slashed or inactive; not eligible
+        brpi = 64 * gwei // int(np.sqrt(max(gwei, int(eff.sum()))))
+        br_max = 32 * brpi
+        pinc = (max(1, n // 3), limit // (br_max * 26), max(1, n // 4))   # target's just under
+        active_inc = max(1, int(eff.sum()) // gwei)
+        reward_bound = sum(br_max * w * p // (active_inc * 64) for w, p in zip((14, 26, 14), pinc))
+        if n > 16:
+            bal[14], elig[14], active[14], part[14] = limit - reward_bound, True, True, 7
+        t = {name: torch.from_numpy(a).to(dev) for name, a in (
+            ("eff", eff), ("bal", bal), ("scores", scores), ("part", part), ("elig", elig),
+            ("active", active))}
+        for leak in (False, True):
+            s = ek.AltairScalars(gwei, brpi, (14, 26, 14), pinc, active_inc, 64, leak, denom)
+            args = (t["eff"], t["bal"], t["scores"], t["part"], t["elig"], t["active"], s)
+            err = max(err, compare(torch, f"K13 (n={n}, leak={leak})", ek.altair_deltas(*args),
+                                   ek.altair_deltas_plain(*args)))
+            args = (t["scores"], t["part"], t["elig"], t["active"], bias, rec, leak)
+            err = max(err, compare(torch, f"K14 (n={n}, leak={leak})",
+                                   ek.inactivity_updates(*args), ek.inactivity_updates_plain(*args)))
+        if n > 16:
+            # outside a leak the head reward after the middle pair's clamp
+            # survives: summing the pairs before one clamp would give 0
+            s = s._replace(in_leak=False)
+            got = ek.altair_deltas(t["eff"], t["bal"], t["scores"], t["part"], t["elig"],
+                                   t["active"], s).cpu().numpy()
+            check(got[8] == 0 and got[10] == 0 and got[9] > 0,
+                  f"K13: the clamp lanes give {got[8:11].tolist()}")
+    torch.cuda.synchronize()
+    print(f"kernel checks (small inputs): K13 and K14 at n = 1, 1000, {n_lanes} (every flag "
+          f"combination, eligible and not, active and not, zero balances, clamps at the first, "
+          f"the middle and the last pair, scores 0, 1 and {rec}, lane products just under "
+          f"2^63; leaking and not) byte-identical to their plain versions on the card "
+          f"(tolerance 0: integers)")
+    return err
+
+
+def altair_epoch_state(spec, ssz, np, pre, seed: int):
+    """Phase 14's state: ``upgrade_to_altair`` of phase 10's phase0 state
+    (``translate_participation`` gives the previous epoch's flags from
+    its 2048 pending attestations), with seeded inactivity scores (30% of
+    the lanes at 1-100, one in a thousand at 2^26-2^27, the scale of a
+    months-long leak) and seeded current-epoch flags, both written
+    packed."""
+    state = spec.upgrade_to_altair(pre)
+    n = len(state.validators)
+    rng = np.random.default_rng(seed)
+    roll = rng.random(n)
+    scores = np.where(roll < 0.3, rng.integers(1, 101, n), 0).astype(np.uint64)
+    big = roll < 0.001
+    scores[big] = rng.integers(2**26, 2**27, n).astype(np.uint64)[big]
+    state.inactivity_scores = ssz.basic_sequence_from_column(type(state.inactivity_scores),
+                                                             scores)
+    state.current_epoch_participation = ssz.basic_sequence_from_column(
+        type(state.current_epoch_participation), rng.integers(0, 8, n).astype(np.uint8))
+    return state
+
+
+def altair_block_phase(torch, dev, card, sks, pks, pre) -> dict:
+    """Phase 13: a mainnet Altair block through ``state_transition`` on
+    ``dev``: the state is ``upgrade_to_altair`` of phase 6's phase0 state
+    (2^20 validators); the block carries 128 attestations, the current
+    sync committee's aggregate with a seeded ~1/16 of its bits off, the
+    proposer signature and the randao reveal (131 RLC items)."""
+    import numpy as np
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import bls_torch, sha256
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+    from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+
+    spec = build_spec("altair", "mainnet")
+    bls.use_torch(dev)
+    sha256.install_merkle_hasher(dev)
+    up = StageClock()
+    for name in ("translate_participation", "get_next_sync_committee"):
+        up.wrap(spec, name)
+    t0 = time.perf_counter()
+    state = spec.upgrade_to_altair(pre)
+    t_up = time.perf_counter() - t0
+    up.restore()
+    t0 = time.perf_counter()
+    cold = bytes(ssz.hash_tree_root(state))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    print(f"altair: upgrade_to_altair of the {len(pre.validators)}-validator phase0 state "
+          f"{t_up:.2f} s (the two sync committees {up.ms['get_next_sync_committee']:.2f} ms, "
+          f"translate_participation {up.ms['translate_participation']:.2f} ms, host); cold root "
+          f"{t_cold:.3f} s on K5 ({cold.hex()[:16]}) on {card}")
+
+    sk_of_pk = dict(zip(pks, sks))
+    dry = state.copy()
+    t0 = time.perf_counter()
+    spec.process_slots(dry, BLOCK_SLOT)
+    t_slots_dry = time.perf_counter() - t0
+    proposer = int(spec.get_beacon_proposer_index(dry))
+
+    def sk_of(v):
+        return sks[v % len(sks)]
+
+    t0 = time.perf_counter()
+    committees = {(s, c): spec.get_beacon_committee(dry, s, c)
+                  for s in (1, 2)
+                  for c in range(int(spec.get_committee_count_per_slot(dry, 0)))}
+    t_comm = time.perf_counter() - t0
+    att_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_ATTESTER, 0)
+    t0 = time.perf_counter()
+    atts = []
+    for (s, c), members in committees.items():
+        data = spec.AttestationData(
+            slot=s, index=c, beacon_block_root=spec.get_block_root_at_slot(dry, s),
+            source=dry.current_justified_checkpoint,
+            target=spec.Checkpoint(epoch=0, root=spec.get_block_root(dry, 0)))
+        sk = sum(sk_of(v) for v in members) % R_ORDER
+        atts.append(spec.Attestation(
+            aggregation_bits=[True] * len(members), data=data,
+            signature=O.Sign(sk, spec.compute_signing_root(data, att_domain))))
+    randao = O.Sign(sk_of(proposer), spec.compute_signing_root(
+        spec.uint64(0), spec.get_domain(dry, spec.DOMAIN_RANDAO)))
+    # the sync aggregate: the current committee signs the previous slot's
+    # block root; a seeded ~1/16 of its members abstain
+    bits = (np.random.default_rng(13).random(SYNC) >= 1 / 16).tolist()
+    members = [bytes(pk) for pk in dry.current_sync_committee.pubkeys]
+    sync_root = spec.compute_signing_root(
+        spec.get_block_root_at_slot(dry, BLOCK_SLOT - 1),
+        spec.get_domain(dry, spec.DOMAIN_SYNC_COMMITTEE, 0))
+    sync_sk = sum(sk_of_pk[pk] for pk, b in zip(members, bits) if b) % R_ORDER
+    sync = spec.SyncAggregate(sync_committee_bits=bits,
+                              sync_committee_signature=O.Sign(sync_sk, sync_root))
+    t_sign = time.perf_counter() - t0
+    block = spec.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=ssz.hash_tree_root(dry.latest_block_header),
+        body=spec.BeaconBlockBody(randao_reveal=randao, eth1_data=dry.eth1_data,
+                                  attestations=atts, sync_aggregate=sync))
+    n_keys = sum(len(m) for m in committees.values()) + sum(bits) + 2
+    print(f"altair block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations, "
+          f"a sync aggregate of {sum(bits)} of {SYNC} members, {len(atts) + 3} RLC items, "
+          f"{n_keys} keys; set-up: committees {t_comm:.2f} s, signing {t_sign:.2f} s (host)")
+    prop_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_PROPOSER)
+
+    def signed(msg):
+        sig = O.Sign(sk_of(proposer), spec.compute_signing_root(msg, prop_domain))
+        return spec.SignedBeaconBlock(message=msg, signature=sig)
+
+    bls.bls_active = False
+    t0 = time.perf_counter()
+    spec.process_block(dry, block.copy())
+    block.state_root = ssz.hash_tree_root(dry)
+    t_dry = time.perf_counter() - t0
+    bls.bls_active = True
+    del dry
+    print(f"altair dry run on a copy: process_slots {t_slots_dry:.2f} s, process_block + root "
+          f"{t_dry:.2f} s")
+
+    # -- the transition on the card, every K1-K5 call recorded ------------------
+    clock = StageClock()
+    post = state.copy()
+    good = signed(block.copy())
+    for name in ("process_slots", "process_block", "process_sync_aggregate",
+                 "process_attestation"):
+        clock.wrap(spec, name)
+    clock.wrap(bls.DeferredBatch, "flush")
+    clock.wrap(bls_torch, "_decompress_g2")
+    bls.clear_verify_memo()
+    recorders = [CallRecorder(torch, bls_torch, k) for k in KERNELS]
+    recorders.append(CallRecorder(torch, sha256, "hash64", first_of_shape=True))
+    torch.cuda.synchronize()
+    for r in recorders:
+        r.__enter__()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with bls.scoped_batch(bls.DeferredBatch()) as batch:
+        spec.state_transition(post, good)
+    torch.cuda.synchronize()
+    t_total = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launches)
+    for r in reversed(recorders):
+        r.__exit__()
+    clock.restore()
+    path_kernels = KERNELS + ("hash64",)
+    check(batch.pairings == 1, f"altair: expected one product pairing, got {batch.pairings}")
+    check(batch.last_results == [True] * (len(atts) + 3),
+          f"altair: last_results must be {len(atts) + 3} x True")
+    check(all(launches[k] > 0 for k in path_kernels),
+          f"altair: a kernel of the transition was not launched: {launches}")
+    ms = clock.ms
+    rest = ms["process_block"] - ms["process_attestation"] - ms["process_sync_aggregate"] \
+        - ms["flush"]
+    print(f"altair state_transition: passed with {batch.pairings} product pairing, "
+          f"{len(batch.last_results)} items; launches "
+          f"{ {k: launches[k] for k in path_kernels} }")
+    print(f"time altair state_transition (validate_result=True): {t_total:.2f} ms = slots "
+          f"{ms['process_slots']:.2f} + process_attestation x{len(atts)} "
+          f"{ms['process_attestation']:.2f} (flags, proposer reward, the signatures queued) + "
+          f"process_sync_aggregate {ms['process_sync_aggregate']:.2f} + flush {ms['flush']:.2f} "
+          f"(_decompress_g2 {ms['_decompress_g2']:.2f}) + rest of process_block {rest:.2f} + "
+          f"state-root check and block signature "
+          f"{t_total - ms['process_slots'] - ms['process_block']:.2f} on {card}")
+    root_post, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, post)
+    check(root_post == bytes(block.state_root),
+          "altair: the post-state's hashlib root differs from the block's state_root")
+    print(f"altair post-state root: hashlib recompute equals the block's state_root "
+          f"({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize)")
+    del post
+    plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
+             "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
+             "pairing_check": pairing.pairing_check_plain, "hash64": sha256.hash64_plain}
+    err = {r.name: r.hold(plain[r.name]) for r in recorders}
+    print(f"altair: every K1-K4 call of the transition and the first K5 call of every row "
+          f"count held against their plain versions ({ {r.name: r.count for r in recorders} } "
+          f"calls)")
+
+    # -- the two rejections --------------------------------------------------------
+    forged = block.copy()
+    forged.body.sync_aggregate.sync_committee_signature = atts[0].signature
+    bls.clear_verify_memo()
+    bad_state = state.copy()
+    with bls.scoped_batch(bls.DeferredBatch()) as batch:
+        try:
+            spec.state_transition(bad_state, signed(forged))
+            fail("a forged sync-aggregate signature passed state_transition")
+        except AssertionError:
+            pass
+    failed = [i for i, ok in enumerate(batch.last_results) if not ok]
+    # items: the proposer signature, the randao reveal, the attestations,
+    # the sync aggregate last
+    check(failed == [len(atts) + 2], f"forged sync aggregate not isolated: {failed}")
+    print(f"forged sync aggregate: AssertionError, last_results names item {failed} alone "
+          f"(items: proposer, randao, attestations, sync aggregate)")
+    wrong = block.copy()
+    wrong.state_root = b"\x01" * 32
+    bad_state = state.copy()
+    with bls.scoped_batch(bls.DeferredBatch()) as batch:
+        try:
+            spec.state_transition(bad_state, signed(wrong))
+            fail("a wrong state_root passed the altair state_transition")
+        except AssertionError:
+            pass
+    check(batch.last_results is not None and all(batch.last_results),
+          "altair: the wrong-root block must fail at the root check, not at a signature")
+    print("altair wrong state_root: AssertionError at the state-root check (signatures passed)")
+    return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
+            "transition_ms": t_total, "upgrade_s": t_up}
+
+
+def altair_epoch_phase(torch, dev, card, pks, pre, err: int) -> dict:
+    """Phase 14: an Altair epoch transition of phase 10's registry (2^20
+    validators, upgraded) through ``process_slots`` on the card, not
+    leaking and leaking; the reduced leg at 4,096 validators.  ``err``:
+    phase 12's largest K13/K14 word difference."""
+    import numpy as np
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import bls, ssz
+
+    spec = build_spec("altair", "mainnet")
+    sha256.install_merkle_hasher(dev)
+    t0 = time.perf_counter()
+    base = altair_epoch_state(spec, ssz, np, pre, seed=14)
+    t_build = time.perf_counter() - t0
+    n_pending = len(pre.previous_epoch_attestations)
+    del pre                             # the caller holds no other reference
+    t0 = time.perf_counter()
+    cold = bytes(ssz.hash_tree_root(base))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    state_arrays.reset_stats()
+    t0 = time.perf_counter()
+    store = state_arrays.of(base)
+    store.registry()
+    store.balances()
+    store.column("inactivity_scores")
+    store.participation("previous")
+    t_extract = (time.perf_counter() - t0) * 1e3
+    flags = store.participation("previous")
+    print(f"altair epoch state: {len(base.validators)} validators at slot {EPOCH_SLOT}, previous "
+          f"flags from {n_pending} pending attestations (source "
+          f"{int((flags & 1).astype(bool).sum())}, target {int((flags & 2).astype(bool).sum())}, "
+          f"head {int((flags & 4).astype(bool).sum())} lanes); set-up: upgrade and scatter "
+          f"{t_build:.2f} s, cold root {t_cold:.3f} s on K5 ({cold.hex()[:16]}), column "
+          f"extraction {t_extract:.2f} ms on {card}")
+    bls.bls_active = False              # epoch processing verifies no signature
+    runs = {"not_leaking": epoch_run(torch, dev, card, spec, base, "altair not leaking")}
+    runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "altair leaking")
+    check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
+          "the two altair runs must be one not leaking and one leaking")
+    del base
+    bls.bls_active = True
+    n = REDUCED_VALIDATORS
+    p0 = build_spec("phase0", "mainnet")
+    small = altair_epoch_state(spec, ssz, np, epoch_state(p0, ssz, np, pks, n, seed=n), seed=n)
+    bls.bls_active = False
+    reduced_epoch_leg(torch, dev, spec, small, n)
+    bls.bls_active = True
+    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold,
+            "build_s": t_build}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
-                    help="active validators of the phase0 state (default 2^20)")
+                    help="active validators of the phase0 and Altair states (default 2^20)")
     opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1813,9 +2231,19 @@ def main(argv=None) -> int:
     k6_args = sha_kernel_checks(torch, cu, sha256)["sha256_blocks"]
 
     # ---- 6. a mainnet phase0 block through state_transition -----------------
-    k5, block_launches = phase0_block(torch, cu, card, sks, pks, opts.validators)
+    k5, block_launches, phase0_state = phase0_block(torch, cu, card, sks, pks, opts.validators)
     kernels.append(k5)
     kernels.append(sha256_blocks_entry(torch, sha256, k6_args, block_launches["sha256_blocks"]))
+
+    # ---- 13. a mainnet Altair block through state_transition (run here, on
+    # phase 6's state, so that no 2^20-validator state outlives its use:
+    # every full garbage collection of the later phases scans what is alive)
+    ablock = altair_block_phase(torch, cu, card, sks, pks, phase0_state)
+    del phase0_state
+    for e in kernels:
+        if e["name"] in ablock["launches"]:
+            e["altair_block_launches"] = ablock["launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], ablock["err"][e["name"]])
 
     # ---- 7. K7, K8 and K9 against their plain versions and the oracle --------
     err = slice3_kernel_checks(torch, cu)
@@ -1838,9 +2266,24 @@ def main(argv=None) -> int:
 
     # ---- 10. a mainnet phase0 epoch transition ----------------------------------
     epoch = epoch_phase(torch, cu, card, pks, opts.validators)
+
+    # ---- 11. K10-K12 per launch ------------------------------------------------
     kernels += epoch_entries(torch, card, epoch)
 
-    # ---- 11. result lines ----------------------------------------------------
+    # ---- 12. K13 and K14 against their plain versions ---------------------------
+    altair_err = altair_kernel_checks(torch, cu, opts.validators)
+
+    # ---- 14. a mainnet Altair epoch transition -----------------------------------
+    aepoch = altair_epoch_phase(torch, cu, card, pks, epoch.pop("base"), altair_err)
+    for e in kernels:
+        if e["name"] in ("effective_balance", "slashings"):
+            e["altair_epoch_launches"] = max(r["launches"][e["name"]]
+                                             for r in aepoch["runs"].values())
+            e["max_abs_err"] = max([e["max_abs_err"]] + [r["err"][e["name"]]
+                                                         for r in aepoch["runs"].values()])
+    kernels += epoch_entries(torch, card, aepoch, ALTAIR_EPOCH_KERNELS)
+
+    # ---- 15. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -35,7 +35,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 launches = {"g1_aggregate_scale": 0, "g2_scale_sum": 0, "hash_to_g2": 0,
             "pairing_check": 0, "hash64": 0, "sha256_blocks": 0,
             "expand_windows": 0, "g1_msm": 0, "fr_butterfly": 0,
-            "phase0_deltas": 0, "effective_balance": 0, "slashings": 0}
+            "phase0_deltas": 0, "effective_balance": 0, "slashings": 0,
+            "altair_deltas": 0, "inactivity_updates": 0}
 
 _lock = threading.Lock()
 _libs = {}
@@ -219,12 +220,16 @@ _SIGS = {
     + [_VP],
     "slashings": [_VP, _VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 3
     + [_VP],
+    "altair_deltas": [_VP] * 7 + [ctypes.c_longlong, _VP, _VP],
+    "inactivity_updates": [_VP] * 5 + [ctypes.c_longlong, ctypes.c_ulonglong,
+                                       ctypes.c_ulonglong, ctypes.c_int, _VP],
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
          "hash_to_g2": "htc", "pairing_check": "pairing",
          "hash64": "sha256", "sha256_blocks": "sha256",
          "expand_windows": "msm", "g1_msm": "msm", "fr_butterfly": "fr_fft",
-         "phase0_deltas": "epoch", "effective_balance": "epoch", "slashings": "epoch"}
+         "phase0_deltas": "epoch", "effective_balance": "epoch", "slashings": "epoch",
+         "altair_deltas": "epoch", "inactivity_updates": "epoch"}
 
 
 def load(lib: str) -> ctypes.CDLL:

@@ -4,7 +4,7 @@ Counterpart of ``consensus_specs_tpu/config/loader.py`` (reference
 behavior: ``setup.py:306-331`` load_preset/load_config and
 ``config/config_util.py:5-63`` parse_config_vars).  The files are the
 port's own copies, resolved from this package's root: ``presets/<name>/
-phase0.yaml`` and ``configs/<name>.yaml``.  Values that look like
+<fork>.yaml`` and ``configs/<name>.yaml``.  Values that look like
 integers become ``int``; ``0x...`` values stay hex strings here (the
 spec converts them to the right SSZ byte types).
 """
@@ -15,7 +15,7 @@ from typing import Any, Dict
 PKG_ROOT = Path(__file__).resolve().parent.parent
 
 # the forks whose preset files this package carries, in fork order
-FORKS = ("phase0",)
+FORKS = ("phase0", "altair")
 
 
 def _read_flat_yaml(path) -> Dict[str, str]:

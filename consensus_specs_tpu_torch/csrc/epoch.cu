@@ -1,15 +1,20 @@
-// K10 phase0_deltas, K11 effective_balance, K12 slashings (see
-// ops/epoch_kernels.py, which holds their wrappers and plain versions).
+// K10 phase0_deltas, K11 effective_balance, K12 slashings, K13
+// altair_deltas, K14 inactivity_updates (see ops/epoch_kernels.py, which
+// holds their wrappers and plain versions).
 //
 // Replace the O(validators) passes of consensus_specs_tpu/ops/
-// epoch_kernels.py on the phase0 path, fused as the mesh programs of
-// parallel/mesh_epoch.py compose them per shard:
+// epoch_kernels.py, fused as the mesh programs of parallel/mesh_epoch.py
+// compose them per shard:
 //   K10: phase0_component_kernel x3 (:205, source/target/head),
 //        phase0_inactivity_kernel (:223, leak epochs) and
 //        apply_deltas_kernel (:162), as in _p_phase0_deltas (:363-416);
 //   K11: effective_balance_kernel (:240), as in _p_eff_balance (:473);
 //   K12: slashing_penalty_kernel (:252) and the clamped decrease, as in
-//        _p_slashings (:444-471).
+//        _p_slashings (:444-471);
+//   K13: flag_deltas_kernel x3 (:169), inactivity_penalty_kernel (:185)
+//        and apply_deltas_kernel (:162) four times, pair by pair, as in
+//        _p_altair_deltas (:311-360);
+//   K14: inactivity_updates_kernel (:192), as in _p_inactivity (:418-441).
 // Columns arrive as int64 tensors holding uint64 bits and are read here
 // as uint64_t, so every quotient truncates and every decrease clamps at
 // zero exactly as the numpy version does; the engine's guards keep each
@@ -18,9 +23,12 @@
 //
 // Design: one thread per validator lane, grid-stride, no shared memory:
 // each pass reads its columns once and writes one.  Bound: bytes (K10
-// 36, K11 24, K12 25 B per lane at most: 11.3, 7.5 and 7.8 us at 2^20
-// lanes and 3.35 TB/s); the 64-bit divisions are emulated in a few tens
-// of instructions but stay under the memory time.
+// 36, K11 24, K12 25, K13 35, K14 19 B per lane at most: 11.3, 7.5, 7.8,
+// 11.0 and 6.0 us at 2^20 lanes and 3.35 TB/s); the 64-bit divisions are
+// emulated in a few tens of instructions but stay near the memory time.
+// K13 applies its four (reward, penalty) pairs one after another with a
+// clamp at zero between each, as the spec's loop over the deltas does:
+// summing them first would give another balance wherever a clamp bites.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +105,63 @@ k_slashings(const uint64_t* __restrict__ eff, const uint64_t* __restrict__ bal,
   }
 }
 
+// K13's scalars, in the order of the host parameter array.  The flag
+// indices are the spec's constants: 0 source, 1 target, 2 head (no head
+// penalty); the inactivity penalty falls on lanes without the target flag.
+struct AltairParams {
+  uint64_t inc, brpi, weight[3], part_inc[3], reward_den, weight_den, in_leak, inact_den;
+};
+
+__global__ void __launch_bounds__(EPOCH_THREADS)
+k_altair_deltas(const uint64_t* __restrict__ eff, const uint64_t* __restrict__ bal,
+                const uint64_t* __restrict__ scores, const uint8_t* __restrict__ part,
+                const uint8_t* __restrict__ elig, const uint8_t* __restrict__ active,
+                uint64_t* __restrict__ out, long long n, AltairParams p) {
+  for (long long i = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * EPOCH_THREADS) {
+    uint64_t b = bal[i];
+    if (elig[i]) {
+      const uint64_t e = eff[i];
+      const uint64_t base = e / p.inc * p.brpi;
+      const uint8_t flags = active[i] ? part[i] : 0;
+      for (int f = 0; f < 3; ++f) {
+        uint64_t rew = 0, pen = 0;
+        if ((flags >> f) & 1) {
+          if (!p.in_leak) rew = base * p.weight[f] * p.part_inc[f] / p.reward_den;
+        } else if (f != 2) {
+          pen = base * p.weight[f] / p.weight_den;
+        }
+        const uint64_t up = b + rew;
+        b = pen > up ? 0 : up - pen;
+      }
+      if (!((flags >> 1) & 1)) {
+        const uint64_t pen = e * scores[i] / p.inact_den;
+        b = pen > b ? 0 : b - pen;
+      }
+    }
+    out[i] = b;
+  }
+}
+
+__global__ void __launch_bounds__(EPOCH_THREADS)
+k_inactivity_updates(const uint64_t* __restrict__ scores, const uint8_t* __restrict__ part,
+                     const uint8_t* __restrict__ elig, const uint8_t* __restrict__ active,
+                     uint64_t* __restrict__ out, long long n, uint64_t bias,
+                     uint64_t recovery, int in_leak) {
+  for (long long i = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x; i < n;
+       i += (long long)gridDim.x * EPOCH_THREADS) {
+    uint64_t s = scores[i];
+    if (elig[i]) {
+      if (active[i] && ((part[i] >> 1) & 1))
+        s -= s < 1 ? s : 1;
+      else
+        s += bias;
+      if (!in_leak) s -= recovery < s ? recovery : s;
+    }
+    out[i] = s;
+  }
+}
+
 // params: a HOST array of 11 uint64 (Phase0Params' fields in order),
 // read here before the launch
 extern "C" int phase0_deltas(const void* eff, const void* incl, const void* bal,
@@ -129,5 +194,35 @@ extern "C" int slashings(const void* eff, const void* bal, const void* target, v
   k_slashings<<<grid_for(n), EPOCH_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint64_t*)eff, (const uint64_t*)bal, (const uint8_t*)target, (uint64_t*)out, n,
       inc, adjusted, total);
+  return (int)cudaGetLastError();
+}
+
+// params: a HOST array of 12 uint64 (AltairParams' fields in order), read
+// here before the launch
+extern "C" int altair_deltas(const void* eff, const void* bal, const void* scores,
+                             const void* part, const void* elig, const void* active,
+                             void* out, long long n, const void* params, void* stream) {
+  const uint64_t* h = (const uint64_t*)params;
+  AltairParams p;
+  p.inc = h[0]; p.brpi = h[1];
+  for (int f = 0; f < 3; ++f) {
+    p.weight[f] = h[2 + f];
+    p.part_inc[f] = h[5 + f];
+  }
+  p.reward_den = h[8]; p.weight_den = h[9]; p.in_leak = h[10]; p.inact_den = h[11];
+  k_altair_deltas<<<grid_for(n), EPOCH_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)eff, (const uint64_t*)bal, (const uint64_t*)scores,
+      (const uint8_t*)part, (const uint8_t*)elig, (const uint8_t*)active, (uint64_t*)out, n,
+      p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int inactivity_updates(const void* scores, const void* part, const void* elig,
+                                  const void* active, void* out, long long n,
+                                  unsigned long long bias, unsigned long long recovery,
+                                  int in_leak, void* stream) {
+  k_inactivity_updates<<<grid_for(n), EPOCH_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint64_t*)scores, (const uint8_t*)part, (const uint8_t*)elig,
+      (const uint8_t*)active, (uint64_t*)out, n, bias, recovery, in_leak);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 Counterpart of ``consensus_specs_tpu/forks/__init__.py``.  Each fork is a
 class extending the previous fork's class; ``build_spec(fork, preset)``
 instantiates a fork spec bound to a preset and config, cached per
-(fork, preset, overrides).  The port carries phase0 only.
+(fork, preset, overrides).  The port carries phase0 and Altair.
 ``register_fork`` installs the batched attestation message preparation
 (``ops/att_prep.py``); the JAX package's tracing and DAS installs and
 its markdown-compiled ladder are not carried.
@@ -25,7 +25,7 @@ def register_fork(name):
 
 def fork_registry() -> Dict[str, type]:
     if not _REGISTRY:
-        from . import phase0  # noqa: F401
+        from . import phase0, altair  # noqa: F401
     return dict(_REGISTRY)
 
 

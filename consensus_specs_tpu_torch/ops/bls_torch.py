@@ -16,7 +16,8 @@ path; here they are the compositions K1 -> K3 -> K4 and K3 -> K4.
 Cold paths (``Sign``, ``SkToPk``, ``Aggregate``, ``AggregatePKs``,
 ``KeyValidate``) and decompression with its subgroup checks stay on the
 host in the python oracle, with the decoded registry cached, as the JAX
-package leaves them.  Every entry point takes ``device``: None means
+package leaves them; ``AggregatePKs`` sums the cached points, so a sync
+committee's 512 registry keys are not decompressed again.  Every entry point takes ``device``: None means
 the card (and raises without one); ``"cpu"`` runs the plain versions.
 """
 from collections import OrderedDict
@@ -35,7 +36,6 @@ from .torch_bls.points import g1_aggregate_scale, g2_scale_sum
 Sign = _oracle.Sign
 SkToPk = _oracle.SkToPk
 Aggregate = _oracle.Aggregate
-AggregatePKs = _oracle.AggregatePKs
 KeyValidate = _oracle.KeyValidate
 
 
@@ -84,6 +84,20 @@ def _packed_g1(data: bytes):
     if entry[1] is None:
         entry[1] = pack_g1([entry[0]])[0].numpy().reshape(24)
     return entry[1]
+
+
+def AggregatePKs(pubkeys) -> bytes:
+    """The oracle's ``AggregatePKs`` (KeyValidate each key, sum), reading
+    the decompression cache."""
+    if len(pubkeys) == 0:
+        raise ValueError("cannot aggregate empty pubkey list")
+    acc = None
+    for pk in pubkeys:
+        p = _g1_entry(pk)[0]
+        if p is None:
+            raise ValueError("invalid pubkey in aggregation")
+        acc = p if acc is None else acc + p
+    return acc.to_compressed()
 
 
 def _decompress_g2(data: bytes):

@@ -1,9 +1,10 @@
-"""Vectorized epoch engine for phase0: kernels K10 ``phase0_deltas``, K11
-``effective_balance`` and K12 ``slashings`` with their plain versions,
-the engine switch and the ``try_process_*`` orchestrators.
+"""Vectorized epoch engine for phase0 and Altair: kernels K10
+``phase0_deltas``, K11 ``effective_balance``, K12 ``slashings``, K13
+``altair_deltas`` and K14 ``inactivity_updates`` with their plain
+versions, the engine switch and the ``try_process_*`` orchestrators.
 
-Counterpart of ``consensus_specs_tpu/ops/epoch_kernels.py`` (phase0
-path).  The per-validator epoch loops of ``forks/phase0.py`` are
+Counterpart of ``consensus_specs_tpu/ops/epoch_kernels.py`` (the phase0
+and Altair paths).  The per-validator epoch loops of ``forks/phase0.py`` are
 O(validators) python passes over SSZ views; this module re-expresses
 them over the state column store (``state/arrays.py``).  As in the JAX
 single-device engine, the masks built from the python attester sets,
@@ -20,6 +21,12 @@ as ``parallel/mesh_epoch.py`` composes them per shard:
   K12 ``slashings``          ``slashing_penalty_kernel`` (:252) and the
                              clamped decrease, as in ``_p_slashings``
                              (:444-471)
+  K13 ``altair_deltas``      ``flag_deltas_kernel`` x3 (:169),
+                             ``inactivity_penalty_kernel`` (:185) and
+                             ``apply_deltas_kernel`` (:162) once per pair,
+                             as in ``_p_altair_deltas`` (:311-360)
+  K14 ``inactivity_updates`` ``inactivity_updates_kernel`` (:192), as in
+                             ``_p_inactivity`` (:418-441)
 
 The CUDA side is ``csrc/epoch.cu``: one thread per validator lane, each
 column read once and the result written once; bound: bytes.  Columns
@@ -28,7 +35,13 @@ no arithmetic, so the plain versions compute on int64 lanes; that is
 exact because every lane product is guarded below 2^63 (``_guard``: the
 JAX engine's limit is 2^64, so a state between the two limits runs the
 spec loop here and gives the same root).  Epoch comparisons
-(``FAR_FUTURE_EPOCH`` is 2^64 - 1) stay in host numpy uint64.
+(``FAR_FUTURE_EPOCH`` is 2^64 - 1) stay in host numpy uint64, so the
+kernels take the host's eligibility and activity masks.
+
+On Altair, ``process_inactivity_updates`` runs before the rewards: K14
+writes the scores on the card and K13 reads them there, from the store's
+pending value; scores, balances and effective balances each cross once
+each way per epoch, and the previous epoch's flags go up once.
 
 Switch: ``use_vectorized(device=None)`` (None: the card, raising
 without CUDA; ``"cpu"``: the plain versions, as the tests run),
@@ -39,9 +52,10 @@ the spec loop and is counted in ``stats()``.
 
 Not carried: the supervisor, fault sites and sentinel audits, the mesh
 dispatch, the obs registry, ``install_vectorized_epoch`` (the compiled
-ladder) and the altair kernels (``flag_deltas_kernel``,
-``inactivity_penalty_kernel``, ``inactivity_updates_kernel``).
+ladder) and the forks after Altair (Bellatrix's inactivity quotient and
+slashing multiplier, Deneb's activation churn).
 """
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -52,6 +66,10 @@ from ..state import arrays as state_arrays
 from ..utils.ssz import sequence_items
 
 _LANE_LIMIT = 1 << 63       # every lane value and product stays below it
+
+# the spec's TIMELY_{SOURCE,TARGET,HEAD}_FLAG_INDEX (one value in every
+# fork); K13 and K14 hard-code them the same way
+SOURCE_FLAG, TARGET_FLAG, HEAD_FLAG = 0, 1, 2
 
 # ---------------------------------------------------------------------------
 # Runtime switch
@@ -229,6 +247,87 @@ def slashings_plain(eff, balances, target, increment, adjusted, total_balance):
     return torch.where(pen > balances, torch.zeros_like(pen), balances - pen)
 
 
+def flag_deltas_plain(base_reward, eligible, participating, *, weight, weight_denominator,
+                      participating_increments, active_increments, in_leak, is_head_flag):
+    """``flag_deltas_kernel``: one participation flag's (rewards,
+    penalties) (Altair ``get_flag_index_deltas``)."""
+    zero = torch.zeros_like(base_reward)
+    if in_leak:
+        rewards = zero
+    else:
+        reward = base_reward * weight * participating_increments \
+            // (active_increments * weight_denominator)
+        rewards = torch.where(eligible & participating, reward, zero)
+    if is_head_flag:
+        return rewards, zero
+    penalty = base_reward * weight // weight_denominator
+    return rewards, torch.where(eligible & ~participating, penalty, zero)
+
+
+def inactivity_penalty_plain(eff, scores, eligible, target_participating, *, denominator):
+    """``inactivity_penalty_kernel``: the score-scaled penalties of the
+    eligible lanes without the target flag."""
+    penalty = eff * scores // denominator
+    return torch.where(eligible & ~target_participating, penalty, torch.zeros_like(penalty))
+
+
+def inactivity_score_plain(scores, eligible, participating, *, bias, recovery_rate, in_leak):
+    """``inactivity_updates_kernel``: the score transition of
+    ``process_inactivity_updates`` (``participating``: the target flag)."""
+    bumped = torch.where(participating, scores - torch.clamp(scores, max=1), scores + bias)
+    if not in_leak:
+        bumped = bumped - torch.clamp(bumped, max=recovery_rate)
+    return torch.where(eligible, bumped, scores)
+
+
+def has_flag_plain(part, active, flag: int):
+    """The lanes of ``get_unslashed_participating_indices``: ``active``
+    (active in the previous epoch and not slashed) holding ``flag``."""
+    return active & ((part >> flag) & 1).bool()
+
+
+class AltairScalars(NamedTuple):
+    """K13's scalars (python ints below 2^63)."""
+    increment: int
+    base_reward_per_increment: int
+    weights: Tuple[int, int, int]                     # source, target, head
+    participating_increments: Tuple[int, int, int]
+    active_increments: int
+    weight_denominator: int
+    in_leak: bool
+    inactivity_denominator: int                       # bias x quotient
+
+
+@torch.inference_mode()
+def altair_deltas_plain(eff, balances, scores, part_prev, eligible, active, s):
+    """Plain K13: the three flag deltas and the inactivity penalties,
+    applied pair by pair (each pair's decrease clamps at zero before the
+    next pair applies, as the spec's loop over the deltas does)."""
+    base = eff // s.increment * s.base_reward_per_increment
+    bal = balances
+    for f in (SOURCE_FLAG, TARGET_FLAG, HEAD_FLAG):
+        r, p = flag_deltas_plain(
+            base, eligible, has_flag_plain(part_prev, active, f), weight=s.weights[f],
+            weight_denominator=s.weight_denominator,
+            participating_increments=s.participating_increments[f],
+            active_increments=s.active_increments, in_leak=s.in_leak,
+            is_head_flag=f == HEAD_FLAG)
+        bal = apply_deltas_plain(bal, r, p)
+    pen = inactivity_penalty_plain(eff, scores, eligible,
+                                   has_flag_plain(part_prev, active, TARGET_FLAG),
+                                   denominator=s.inactivity_denominator)
+    return apply_deltas_plain(bal, torch.zeros_like(bal), pen)
+
+
+@torch.inference_mode()
+def inactivity_updates_plain(scores, part_prev, eligible, active, bias, recovery_rate,
+                             in_leak):
+    """Plain K14: the new inactivity scores."""
+    return inactivity_score_plain(scores, eligible,
+                                  has_flag_plain(part_prev, active, TARGET_FLAG),
+                                  bias=bias, recovery_rate=recovery_rate, in_leak=in_leak)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (the plain version for CPU tensors only)
 # ---------------------------------------------------------------------------
@@ -294,6 +393,48 @@ def slashings(eff, balances, target, increment, adjusted, total_balance):
     return out
 
 
+def altair_deltas(eff, balances, scores, part_prev, eligible, active, s: AltairScalars):
+    """K13: new balances after the flag and inactivity deltas.  ``eff``,
+    ``balances``, ``scores``: (V,) int64 holding uint64 bits;
+    ``part_prev``: (V,) uint8 previous-epoch flags; ``eligible``,
+    ``active`` (active in the previous epoch and unslashed): (V,) bool;
+    ``s``: the scalars.  Bound: bytes (:func:`altair_deltas_bytes`)."""
+    dev = _build.same_device(eff, balances, scores, part_prev, eligible, active)
+    n = balances.shape[0]
+    _columns(n, (eff, "eff", torch.int64), (balances, "balances", torch.int64),
+             (scores, "scores", torch.int64), (part_prev, "part_prev", torch.uint8),
+             (eligible, "eligible", torch.bool), (active, "active", torch.bool))
+    if dev.type == "cpu":
+        return altair_deltas_plain(eff, balances, scores, part_prev, eligible, active, s)
+    out = torch.empty_like(balances)
+    params = torch.tensor([s.increment, s.base_reward_per_increment, *s.weights,
+                           *s.participating_increments,
+                           s.active_increments * s.weight_denominator, s.weight_denominator,
+                           int(s.in_leak), s.inactivity_denominator], dtype=torch.int64)
+    if n:
+        _build.launch("altair_deltas", eff, balances, scores, part_prev, eligible, active,
+                      out, n, params)
+    return out
+
+
+def inactivity_updates(scores, part_prev, eligible, active, bias, recovery_rate, in_leak):
+    """K14: the new inactivity scores.  ``scores``: (V,) int64 holding
+    uint64 bits; ``part_prev``: (V,) uint8; ``eligible``, ``active``:
+    (V,) bool.  Bound: bytes (:func:`inactivity_updates_bytes`)."""
+    dev = _build.same_device(scores, part_prev, eligible, active)
+    n = scores.shape[0]
+    _columns(n, (scores, "scores", torch.int64), (part_prev, "part_prev", torch.uint8),
+             (eligible, "eligible", torch.bool), (active, "active", torch.bool))
+    if dev.type == "cpu":
+        return inactivity_updates_plain(scores, part_prev, eligible, active, bias,
+                                        recovery_rate, in_leak)
+    out = torch.empty_like(scores)
+    if n:
+        _build.launch("inactivity_updates", scores, part_prev, eligible, active, out, n,
+                      bias, recovery_rate, int(in_leak))
+    return out
+
+
 def phase0_deltas_bytes(eligible) -> int:
     """Bytes K10's function must move: balances, inclusion rewards and the
     eligibility mask of every lane read, the new balances written, and the
@@ -311,6 +452,37 @@ def slashings_bytes(target) -> int:
     """Bytes K12 must move: balances and the target mask read, the new
     balances written, and the effective balance of the target lanes."""
     return target.numel() * (8 + 1 + 8) + 8 * int(target.sum())
+
+
+def altair_deltas_bytes(eligible, part_prev, active) -> int:
+    """Bytes K13's function must move: balances and the eligibility mask
+    of every lane read and the new balances written; the effective
+    balance, flags and activity mask of the eligible lanes; the score of
+    the eligible lanes without the target flag (at most 35 B per lane)."""
+    target = has_flag_plain(part_prev, active, TARGET_FLAG)
+    n, e = eligible.numel(), int(eligible.sum())
+    return n * (8 + 1 + 8) + e * (8 + 1 + 1) + 8 * int((eligible & ~target).sum())
+
+
+def inactivity_updates_bytes(eligible) -> int:
+    """Bytes K14 must move: scores and the eligibility mask read and the
+    new scores written on every lane; flags and activity mask of the
+    eligible lanes (at most 19 B per lane)."""
+    return eligible.numel() * (8 + 1 + 8) + 2 * int(eligible.sum())
+
+
+def altair_deltas_ops(eligible) -> int:
+    """64-bit integer operations K13's function does (one each): per lane
+    the select of the result; per eligible lane the base reward (2), per
+    flag a bit test (2), a reward (3) or a penalty (2) and the clamped
+    application (3), and the inactivity penalty with its clamp (4)."""
+    return eligible.numel() + int(eligible.sum()) * (2 + 3 * 8 + 4)
+
+
+def inactivity_updates_ops(eligible) -> int:
+    """Per lane a select; per eligible lane a bit test (2), the bump (2)
+    and the recovery (2)."""
+    return eligible.numel() + 6 * int(eligible.sum())
 
 
 def phase0_deltas_ops(eligible, in_leak: bool) -> int:
@@ -337,6 +509,13 @@ def slashings_ops(target) -> int:
 # ---------------------------------------------------------------------------
 # Host helpers (numpy uint64, exact)
 # ---------------------------------------------------------------------------
+
+def _fork_lineage(spec) -> frozenset:
+    """Fork names along the spec class's inheritance chain (every class
+    stamps ``fork``)."""
+    return frozenset(c.__dict__["fork"] for c in type(spec).__mro__
+                     if isinstance(c.__dict__.get("fork"), str))
+
 
 def _masked_sum(eff, mask) -> int:
     """Exact python-int sum of a masked uint64 column."""
@@ -402,7 +581,9 @@ def try_process_rewards_and_penalties(spec, state) -> bool:
     if spec.get_current_epoch(state) == spec.GENESIS_EPOCH:
         _STATS["loop"] += 1
         return False    # the spec body is a no-op early return
-    return _run(state, _phase0_rewards_and_penalties, spec, state, engine_device())
+    fn = (_altair_rewards_and_penalties if "altair" in _fork_lineage(spec)
+          else _phase0_rewards_and_penalties)
+    return _run(state, fn, spec, state, engine_device())
 
 
 def _base_reward_host(eff, brf, sqrt_total, brpe):
@@ -499,6 +680,93 @@ def _phase0_rewards_and_penalties(spec, state, dev) -> None:
     sa.set_balances_card(new, bal_bound + rew_bound)
 
 
+def _altair_masks(spec, state, cols):
+    """Eligibility and ``active`` (active in the previous epoch, not
+    slashed: the lanes a flag can count on) masks."""
+    active_prev, eligible = _epoch_masks(spec, cols, int(spec.get_previous_epoch(state)))
+    return eligible, active_prev & ~cols["sl"]
+
+
+def _altair_rewards_and_penalties(spec, state, dev) -> None:
+    """Altair's flag deltas and inactivity penalties: the participating
+    balances on the host, every O(validators) delta in K13, applied pair
+    by pair.  The scores are the store's current value: what
+    ``process_inactivity_updates`` wrote earlier in this epoch, still on
+    the card, as the spec loop would read them from SSZ."""
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    n = len(cols)
+    if n == 0:
+        return
+    eff = cols["eff"]
+    eligible, active = _altair_masks(spec, state, cols)
+    total_balance = _total_active_balance(spec, cols, int(spec.get_current_epoch(state)))
+    _guard(total_balance)
+    increment = int(spec.EFFECTIVE_BALANCE_INCREMENT)
+    active_increments = total_balance // increment
+    in_leak = bool(spec.is_in_inactivity_leak(state))
+    wd = int(spec.WEIGHT_DENOMINATOR)
+    _guard(active_increments * wd)
+    brpi = increment * int(spec.BASE_REWARD_FACTOR) // math.isqrt(total_balance)
+    max_eff = int(eff.max(initial=0))
+    br_max = (max_eff // increment) * brpi
+    _guard(br_max)
+    flags = sa.participation("previous")
+    weights = tuple(int(w) for w in spec.PARTICIPATION_FLAG_WEIGHTS)
+    part_inc, bal_bound = [], sa.balances_bound()
+    for f, w in enumerate(weights):
+        mask = active & (((flags >> np.uint8(f)) & np.uint8(1)) == np.uint8(1))
+        up_inc = max(increment, _masked_sum(eff, mask)) // increment
+        _guard(br_max * w * up_inc)
+        part_inc.append(up_inc)
+        # the pairs apply one after another: each may raise the maximum
+        reward = 0 if in_leak else br_max * w * up_inc // (active_increments * wd)
+        _guard(bal_bound + reward)
+        bal_bound += reward
+    quotient = int(spec.INACTIVITY_PENALTY_QUOTIENT_ALTAIR)
+    _guard(max_eff * sa.column_bound("inactivity_scores"))
+    s = AltairScalars(increment, brpi, weights, tuple(part_inc), active_increments, wd,
+                      in_leak, int(spec.config.INACTIVITY_SCORE_BIAS) * quotient)
+    new = altair_deltas(
+        sa.registry_card("eff", dev), sa.balances_card(dev), sa.column_card("inactivity_scores", dev),
+        sa.participation_card("previous", dev), state_arrays.upload(eligible, dev, "masks"),
+        state_arrays.upload(active, dev, "masks"), s)
+    sa.set_balances_card(new, bal_bound)
+
+
+# ---------------------------------------------------------------------------
+# process_inactivity_updates (Altair)
+# ---------------------------------------------------------------------------
+
+def try_process_inactivity_updates(spec, state) -> bool:
+    if not enabled():
+        return _decline(state)
+    if spec.get_current_epoch(state) == spec.GENESIS_EPOCH \
+            or "altair" not in _fork_lineage(spec):
+        _STATS["loop"] += 1
+        return False    # the spec body is a no-op early return
+    return _run(state, _inactivity_updates, spec, state, engine_device())
+
+
+def _inactivity_updates(spec, state, dev) -> None:
+    """The score transition in K14; the new scores stay on the card with
+    the bound "old maximum plus bias" beside them."""
+    sa = state_arrays.of(state)
+    cols = sa.registry()
+    if len(cols) == 0:
+        return
+    eligible, active = _altair_masks(spec, state, cols)
+    bias = int(spec.config.INACTIVITY_SCORE_BIAS)
+    bound = sa.column_bound("inactivity_scores") + bias
+    _guard(bound)
+    new = inactivity_updates(
+        sa.column_card("inactivity_scores", dev), sa.participation_card("previous", dev),
+        state_arrays.upload(eligible, dev, "masks"), state_arrays.upload(active, dev, "masks"),
+        bias, int(spec.config.INACTIVITY_SCORE_RECOVERY_RATE),
+        bool(spec.is_in_inactivity_leak(state)))
+    sa.set_column_card("inactivity_scores", new, bound)
+
+
 # ---------------------------------------------------------------------------
 # process_registry_updates (host numpy, as in the JAX single-device engine)
 # ---------------------------------------------------------------------------
@@ -548,10 +816,16 @@ def _registry_apply_idx(spec, state, sa, cols, queue_idx, eject_idx, eligible_id
 
     def writable(*fields):
         # copy-on-write BEFORE the paired SSZ writes: the generation bump
-        # would otherwise read as a stale cell and re-extract
+        # would otherwise read as a stale cell and re-extract.  Once per
+        # call: after the first SSZ writes the cell is stale by design
+        # until mark_registry_committed, so a later step only drops the
+        # card copies of the columns it writes
         nonlocal wcols, cols
-        wcols = sa.registry_writable(*fields)
-        cols = wcols
+        if wcols is None:
+            wcols = sa.registry_writable(*fields)
+            cols = wcols
+        else:
+            sa.drop_registry_card(*fields)
         return wcols
 
     if queue_idx.size:
@@ -612,8 +886,10 @@ def _registry_apply_idx(spec, state, sa, cols, queue_idx, eject_idx, eligible_id
 def try_process_slashings(spec, state) -> bool:
     if not enabled():
         return _decline(state)
-    return _run(state, _slashings, spec, state, int(spec.PROPORTIONAL_SLASHING_MULTIPLIER),
-                engine_device())
+    multiplier = (spec.PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR
+                  if "altair" in _fork_lineage(spec)
+                  else spec.PROPORTIONAL_SLASHING_MULTIPLIER)
+    return _run(state, _slashings, spec, state, int(multiplier), engine_device())
 
 
 def _slashings(spec, state, multiplier, dev) -> None:

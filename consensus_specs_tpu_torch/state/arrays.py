@@ -4,8 +4,9 @@ the card.
 Counterpart of ``consensus_specs_tpu/state/arrays.py`` without its
 runtime switch (the store is always attached), its obs counters,
 sanitizer, supervisor and fault sites, and its adoption of the
-hash-forest's column stash.  The altair columns (inactivity scores,
-participation flags) come with the Altair runtime.
+hash-forest's column stash.  Columns: the registry, the balances, and on
+Altair states the inactivity scores and the two participation-flag
+lists (the engine only reads the flags).
 
 * **One extraction per state lineage.**  ``of(state)`` returns the
   store attached to the state.  Columns are extracted on first use and
@@ -18,10 +19,11 @@ participation flags) come with the Altair runtime.
   binds the same column arrays to the copy; a fork that writes a column
   pays for that column only.
 * **One commit per epoch transition.**  Inside :func:`commit_scope`
-  (opened around ``process_epoch`` by ``forks/phase0.py``) balance
-  writes stay in the store and reach SSZ once, at scope exit, through
-  the chunk-packed ``replace_basic_items(packed=)``.  Registry writes
-  commit eagerly: spec helpers read effective balances mid-epoch.
+  (opened around ``process_epoch`` by ``forks/phase0.py``) balance and
+  inactivity-score writes stay in the store and reach SSZ once, at scope
+  exit, through the chunk-packed ``replace_basic_items(packed=)``.
+  Registry writes commit eagerly: spec helpers read effective balances
+  mid-epoch.
 
 **Two places per column.**  The host copy is numpy uint64 (the registry
 a structured ``VALIDATOR_DTYPE`` array): SSZ commits and the host numpy
@@ -29,12 +31,13 @@ passes read it.  The card copy is a torch tensor on the engine's device
 holding the same bits as ``int64``: the epoch kernels read it.  Writing
 either copy marks the other stale, and a column crosses between them
 only when a reader needs it, through pinned memory (:func:`upload`,
-:func:`download`).  Within one epoch transition on the card, balances go
-up once and come down once (at the scope's commit), and the effective
-balances go up once and come down once (after their update, which
-commits eagerly).  :func:`stats` counts every crossing by column.  The
-device of a card copy is always the caller's (the epoch engine's
-switch): the store never picks one.
+:func:`download`).  Within one epoch transition on the card, balances
+and inactivity scores go up once and come down once (at the scope's
+commit), the effective balances go up once and come down once (after
+their update, which commits eagerly), and the previous epoch's
+participation flags go up once.  :func:`stats` counts every crossing by
+column.  The device of a card copy is always the caller's (the epoch
+engine's switch): the store never picks one.
 """
 import weakref
 from contextlib import contextmanager
@@ -163,9 +166,15 @@ def _extract_registry(seq) -> np.ndarray:
     return cols
 
 
-def _extract_balances(seq) -> np.ndarray:
+def _extract_u64(seq) -> np.ndarray:
     _count("extracts")
     return u64_column(seq)
+
+
+def _extract_u8(seq) -> np.ndarray:
+    items = sequence_items(seq)
+    _count("extracts")
+    return np.fromiter(items, dtype=np.uint8, count=len(items))
 
 
 # ---------------------------------------------------------------------------
@@ -195,15 +204,18 @@ class _Cell:
         self.bound = None
 
 
-# name -> (state field, extractor)
+# name -> (state field, extractor); the last three are Altair's
 _COLUMNS = {
     "registry": ("validators", _extract_registry),
-    "balances": ("balances", _extract_balances),
+    "balances": ("balances", _extract_u64),
+    "inactivity_scores": ("inactivity_scores", _extract_u64),
+    "participation_previous": ("previous_epoch_participation", _extract_u8),
+    "participation_current": ("current_epoch_participation", _extract_u8),
 }
 
-# columns whose writes may stay in the store across the sub-transitions
-# of one commit_scope
-_DEFERRABLE = ("balances",)
+# uint64 columns whose writes may stay in the store across the
+# sub-transitions of one commit_scope
+_DEFERRABLE = ("balances", "inactivity_scores")
 
 _ATTR = "_state_arrays"
 
@@ -282,6 +294,15 @@ class StateArrays:
             cell.card.pop(f, None)
         return cell.data
 
+    def drop_registry_card(self, *fields) -> None:
+        """Drop the card copies of registry columns about to be written
+        into the array :meth:`registry_writable` returned (between it and
+        :meth:`mark_registry_committed` the cell is stale by design and
+        is not revalidated)."""
+        cell = self._cells["registry"]
+        for f in fields:
+            cell.card.pop(f, None)
+
     def mark_registry_committed(self, card=None) -> None:
         """Declare the written registry columns and the SSZ registry
         identical again.  ``card``: {column: tensor} card copies that
@@ -297,49 +318,80 @@ class StateArrays:
         if card:
             cell.card.update(card)
 
-    # -- balances -----------------------------------------------------------
+    # -- deferrable uint64 columns (balances, inactivity scores) ------------
 
-    def balances(self) -> np.ndarray:
-        """Current host balances, pending writes included (read-only);
-        brings a newer card copy down first."""
-        cell = self._cell("balances")
+    def column(self, name: str) -> np.ndarray:
+        """Current host value of a deferrable column, pending writes
+        included (read-only); brings a newer card copy down first."""
+        cell = self._cell(name)
         if cell.data is None:
-            cell.data = download(cell.card["balances"], "balances")
+            cell.data = download(cell.card[name], name)
         return cell.data
 
-    def balances_card(self, dev: torch.device) -> torch.Tensor:
-        """Current balances on ``dev`` (int64 bits)."""
-        cell = self._cell("balances")
-        return self._card(cell, "balances", dev, self.balances)
+    def column_card(self, name: str, dev: torch.device) -> torch.Tensor:
+        """Current value of a deferrable column on ``dev`` (int64 bits)."""
+        cell = self._cell(name)
+        return self._card(cell, name, dev, lambda: self.column(name))
 
-    def balances_bound(self) -> int:
-        """A python int no smaller than any current balance: the exact
-        maximum when the host copy is current, else the bound recorded
-        with the card write."""
-        cell = self._cell("balances")
+    def column_bound(self, name: str) -> int:
+        """A python int no smaller than any lane of a deferrable column:
+        the exact maximum when the host copy is current, else the bound
+        recorded with the card write."""
+        cell = self._cell(name)
         if cell.data is not None:
             return int(cell.data.max(initial=0))
         return cell.bound
 
-    def set_balances(self, new: np.ndarray) -> None:
-        cell = self._cell("balances")
+    def set_column(self, name: str, new: np.ndarray) -> None:
+        cell = self._cell(name)
         if new.dtype != np.uint64 or new.shape != cell.base.shape:
-            raise ValueError(f"state_arrays.balances: column shape/dtype mismatch "
+            raise ValueError(f"state_arrays.{name}: column shape/dtype mismatch "
                              f"({new.dtype}, {new.shape})")
         cell.data, cell.card, cell.bound = new, {}, None
         if not self._deferred:
             self.commit()
 
-    def set_balances_card(self, new: torch.Tensor, bound: int) -> None:
-        """A balances write that stays on the card until a host reader or
-        the commit needs it; ``bound`` >= every lane of ``new``."""
-        cell = self._cell("balances")
+    def set_column_card(self, name: str, new: torch.Tensor, bound: int) -> None:
+        """A write that stays on the card until a host reader or the
+        commit needs it; ``bound`` >= every lane of ``new``."""
+        cell = self._cell(name)
         if new.dtype != torch.int64 or tuple(new.shape) != cell.base.shape:
-            raise ValueError(f"state_arrays.balances: column shape/dtype mismatch "
+            raise ValueError(f"state_arrays.{name}: column shape/dtype mismatch "
                              f"({new.dtype}, {tuple(new.shape)})")
-        cell.data, cell.card, cell.bound = None, {"balances": new}, bound
+        cell.data, cell.card, cell.bound = None, {name: new}, bound
         if not self._deferred:
             self.commit()
+
+    def balances(self) -> np.ndarray:
+        return self.column("balances")
+
+    def balances_card(self, dev: torch.device) -> torch.Tensor:
+        return self.column_card("balances", dev)
+
+    def balances_bound(self) -> int:
+        return self.column_bound("balances")
+
+    def set_balances(self, new: np.ndarray) -> None:
+        self.set_column("balances", new)
+
+    def set_balances_card(self, new: torch.Tensor, bound: int) -> None:
+        self.set_column_card("balances", new, bound)
+
+    # -- participation flags (Altair; read-only) ----------------------------
+
+    def participation(self, which: str) -> np.ndarray:
+        """The uint8 participation-flag column, ``which`` = ``"previous"``
+        or ``"current"`` (read-only).  The cell follows the list object:
+        ``process_participation_flag_updates`` assigns new lists, and the
+        next read extracts them."""
+        return self._cell(f"participation_{which}").data
+
+    def participation_card(self, which: str, dev: torch.device) -> torch.Tensor:
+        """The participation-flag column on ``dev`` (uint8; uploaded on
+        first use)."""
+        name = f"participation_{which}"
+        cell = self._cell(name)
+        return self._card(cell, name, dev, lambda: cell.data)
 
     # -- commit / discard ---------------------------------------------------
 

@@ -255,7 +255,7 @@ def Aggregate(signatures) -> bytes:
 
 @only_with_bls(alt_return=STUB_PUBKEY)
 def AggregatePKs(pubkeys) -> bytes:
-    return _py_backend.AggregatePKs([bytes(p) for p in pubkeys])
+    return _backend.AggregatePKs([bytes(p) for p in pubkeys])
 
 
 @only_with_bls(alt_return=True)

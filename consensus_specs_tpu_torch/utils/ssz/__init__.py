@@ -11,7 +11,7 @@ from .types import (
     ByteVector, ByteList,
     Bytes1, Bytes4, Bytes8, Bytes20, Bytes32, Bytes48, Bytes96,
     Bitvector, Bitlist, Vector, List, Container, Union,
-    sequence_items, replace_basic_items,
+    sequence_items, replace_basic_items, basic_sequence_from_column,
 )
 from .impl import serialize, hash_tree_root, uint_to_bytes, copy, deserialize
 from .merkle import merkleize_chunks, mix_in_length, mix_in_selector, zero_hashes
@@ -22,7 +22,7 @@ __all__ = [
     "ByteVector", "ByteList",
     "Bytes1", "Bytes4", "Bytes8", "Bytes20", "Bytes32", "Bytes48", "Bytes96",
     "Bitvector", "Bitlist", "Vector", "List", "Container", "Union",
-    "sequence_items", "replace_basic_items",
+    "sequence_items", "replace_basic_items", "basic_sequence_from_column",
     "serialize", "hash_tree_root", "uint_to_bytes", "copy", "deserialize",
     "merkleize_chunks", "mix_in_length", "mix_in_selector", "zero_hashes",
 ]

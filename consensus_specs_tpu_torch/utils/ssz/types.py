@@ -3,7 +3,10 @@
 Counterpart of ``consensus_specs_tpu/utils/ssz/types.py`` without its
 telemetry counters.  The state column store (``state/arrays.py``) reads
 through ``sequence_items``, commits through ``replace_basic_items`` and
-rides along ``Container.copy``.  A from-scratch equivalent of the reference's ``remerkleable``
+rides along ``Container.copy``.  Lists and vectors of uint8-uint64 and
+of fixed-size containers (the validator registry) decode and pack column
+by column through numpy, with the values of the element-by-element
+path.  A from-scratch equivalent of the reference's ``remerkleable``
 dependency (reference: ``tests/core/pyspec/eth2spec/utils/ssz/
 ssz_typing.py`` re-exports; normative rules in
 ``ssz/simple-serialize.md``). Provides:
@@ -24,6 +27,8 @@ merkleization re-hashes only mutated subtree paths.
 """
 import weakref
 from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 from .merkle import (
     IncrementalTree,
@@ -101,7 +106,8 @@ class BasicValue(int, SSZValue):
     def decode_bytes(cls, data: bytes):
         if len(data) != cls.byte_length:
             raise ValueError(f"{cls.__name__}: wrong byte length {len(data)}")
-        return cls(int.from_bytes(data, "little"))
+        # every pattern of byte_length bytes is in range: no range check
+        return int.__new__(cls, int.from_bytes(data, "little"))
 
     def serialize(self) -> bytes:
         return int(self).to_bytes(self.byte_length, "little")
@@ -147,6 +153,12 @@ class boolean(BasicValue):
         if value not in (0, 1):
             raise ValueError(f"boolean must be 0 or 1, got {value}")
         return int.__new__(cls, value)
+
+    @classmethod
+    def decode_bytes(cls, data: bytes):
+        if len(data) != 1:
+            raise ValueError(f"boolean: wrong byte length {len(data)}")
+        return cls(data[0])
 
     def __bool__(self):
         return int(self) != 0
@@ -486,8 +498,17 @@ class Bitlist(BitlistBase, metaclass=_ParamMeta):
 # homogeneous sequences
 # ---------------------------------------------------------------------------
 
+def _numpy_width(elem_type) -> bool:
+    """Element types whose values numpy holds and any of whose byte
+    patterns decodes: uint8 to uint64 (not boolean: only 0 and 1 decode)."""
+    return elem_type.byte_length <= 8 and not issubclass(elem_type, boolean)
+
+
 def _pack_basic(values, elem_type) -> bytes:
     size = elem_type.byte_length
+    if size <= 8:
+        return np.fromiter(values, dtype=np.uint64, count=len(values)) \
+            .astype(f"<u{size}").tobytes()
     return b"".join(int(v).to_bytes(size, "little") for v in values)
 
 
@@ -699,6 +720,11 @@ class _SequenceBase(SSZValue):
             size = et.fixed_byte_length()
             if len(data) % size != 0:
                 raise ValueError(f"{cls.__name__}: bad byte length {len(data)}")
+            if issubclass(et, BasicValue) and _numpy_width(et):
+                new = int.__new__
+                return [new(et, v) for v in np.frombuffer(data, dtype=f"<u{size}").tolist()]
+            if issubclass(et, Container) and data:
+                return et._decode_many(data, size)
             return [et.decode_bytes(data[i:i + size]) for i in range(0, len(data), size)]
         if len(data) == 0:
             return []
@@ -900,6 +926,10 @@ class _ContainerMeta(type):
         return cls
 
 
+# Container class -> its field plan (Container._plan)
+_PLANS: Dict[type, tuple] = {}
+
+
 class Container(SSZValue, metaclass=_ContainerMeta):
     """SSZ container. Declare fields with class annotations:
 
@@ -960,6 +990,11 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         # value semantics on assignment (remerkleable-compatible): snapshot
         if type(value) is cls:
             return value.copy()
+        if isinstance(value, Container) and type(value)._fields == cls._fields:
+            # another class of the same field types (one spec's Validator
+            # into another's): the field values coerce as they are
+            return cls._adopt({f: getattr(value, f) if immutable else getattr(value, f).copy()
+                               for f, _, _, immutable in cls._plan()[0]})
         if isinstance(value, Container) and type(value)._fields.keys() == cls._fields.keys():
             return cls(**{k: getattr(value, k) for k in cls._fields})
         if isinstance(value, dict):
@@ -969,14 +1004,14 @@ class Container(SSZValue, metaclass=_ContainerMeta):
     @classmethod
     def _plan(cls):
         """((name, type, fixed byte size or None, immutable) per field, the
-        fixed part's byte length), cached on the class."""
-        plan = cls.__dict__.get("_field_plan")
+        fixed part's byte length), cached per class."""
+        plan = _PLANS.get(cls)
         if plan is None:
             fields = tuple((f, t, t.fixed_byte_length() if t.is_fixed_size() else None,
                             _immutable(t)) for f, t in cls._fields.items())
             plan = (fields, sum(OFFSET_BYTE_LENGTH if size is None else size
                                 for _, _, size, _ in fields))
-            cls._field_plan = plan
+            _PLANS[cls] = plan
         return plan
 
     @classmethod
@@ -991,6 +1026,44 @@ class Container(SSZValue, metaclass=_ContainerMeta):
                 _set_owner(v, new, fname)
         object.__setattr__(new, "_root_cache", None)
         return new
+
+    @classmethod
+    def _decode_many(cls, data: bytes, size: int) -> list:
+        """The fixed-size elements of one List or Vector, decoded field by
+        field over all of them (uint fields through numpy, byte vectors
+        by slicing), then assembled: the same values as one
+        ``decode_bytes`` per element, for a registry of 2^20 validators
+        in a fraction of the time."""
+        fields, _ = cls._plan()
+        n = len(data) // size
+        rows = np.frombuffer(data, dtype=np.uint8).reshape(n, size)
+        cols, pos = [], 0
+        for fname, ftype, fsize, immutable in fields:
+            if issubclass(ftype, BasicValue) and _numpy_width(ftype):
+                vals = np.ascontiguousarray(rows[:, pos:pos + fsize]) \
+                    .view(f"<u{fsize}").reshape(n).tolist()
+                new = int.__new__
+                col = [new(ftype, v) for v in vals]
+            elif issubclass(ftype, ByteVectorBase):
+                new = bytes.__new__
+                col = [new(ftype, data[o:o + fsize]) for o in range(pos, n * size, size)]
+            else:
+                dec = ftype.decode_bytes
+                col = [dec(data[o:o + fsize]) for o in range(pos, n * size, size)]
+            cols.append((fname, col, immutable))
+            pos += fsize
+        out = []
+        setattr_ = object.__setattr__
+        for i in range(n):
+            new = object.__new__(cls)
+            for fname, col, immutable in cols:
+                v = col[i]
+                setattr_(new, fname, v)
+                if not immutable:
+                    _set_owner(v, new, fname)
+            setattr_(new, "_root_cache", None)
+            out.append(new)
+        return out
 
     @classmethod
     def decode_bytes(cls, data: bytes):
@@ -1021,16 +1094,13 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         return cls._adopt(fixed_parts)
 
     def serialize(self) -> bytes:
-        fields = type(self)._fields
+        fields, fixed_total = type(self)._plan()
         head = bytearray()
         tail = bytearray()
-        fixed_total = sum(
-            t.fixed_byte_length() if t.is_fixed_size() else OFFSET_BYTE_LENGTH
-            for t in fields.values())
         offset = fixed_total
-        for fname, ftype in fields.items():
+        for fname, _, size, _ in fields:
             v = getattr(self, fname)
-            if ftype.is_fixed_size():
+            if size is not None:
                 head += v.serialize()
             else:
                 part = v.serialize()
@@ -1249,6 +1319,26 @@ def replace_basic_items(seq, items, packed=None) -> None:
     seq._root_memo = None
     seq._gen = getattr(seq, "_gen", 0) + 1
     _notify_owner(seq)
+
+
+def basic_sequence_from_column(typ, column):
+    """A new ``typ`` (a List or Vector of a basic element of at most 8
+    bytes) holding the values of the numpy ``column``, built without a
+    per-element coercion: one element object per distinct value, and the
+    chunk tree from the packed column (:func:`replace_basic_items`).
+    Equal, root and serialization alike, to ``typ(list of values)``;
+    the epoch transition builds its registry-wide flag and score lists
+    this way (2^20 elements)."""
+    import numpy as np
+    et = typ.elem_type
+    if not issubclass(et, BasicValue) or et.byte_length > 8:
+        raise TypeError("basic_sequence_from_column: basic elements of <= 8 bytes only")
+    col = np.ascontiguousarray(column).astype(f"<u{et.byte_length}", copy=False)
+    vals, inv = np.unique(col, return_inverse=True)
+    pool = [et(v) for v in vals.tolist()]
+    seq = typ()
+    replace_basic_items(seq, [pool[i] for i in inv.tolist()], packed=col.tobytes())
+    return seq
 
 
 # Bottom import: forest.py needs the class definitions above (it walks

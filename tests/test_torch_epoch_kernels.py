@@ -1,4 +1,4 @@
-"""The port's epoch kernels (K10-K12) against the JAX package's
+"""The port's epoch kernels (K10-K14) against the JAX package's
 ``*_kernel`` functions.
 
 Each plain PyTorch version (int64 lanes) is held against its JAX
@@ -9,7 +9,10 @@ penalties above balance plus reward, balances exactly at the hysteresis
 thresholds, and lane products just under the port's 2^63 guard.  The
 fused compositions K10 and K12 compute are held against the JAX kernels
 composed as ``_phase0_rewards_and_penalties`` and ``_slashings`` compose
-them, and the host helpers against the JAX helpers on registry columns
+them, K13 against the Altair kernels composed pair by pair as
+``_altair_rewards_and_penalties`` applies them (with clamps at the first,
+a middle and the last pair), K14 against ``inactivity_updates_kernel``,
+and the host helpers against the JAX helpers on registry columns
 with ``FAR_FUTURE_EPOCH`` lanes.  The wrappers take the plain versions
 on CPU tensors, reject malformed arguments, and ``use_vectorized()``
 raises without CUDA.
@@ -266,3 +269,143 @@ def test_use_vectorized_without_cuda_raises():
     ek.use_vectorized("cpu")
     assert ek.enabled() and ek.engine_device() == torch.device("cpu")
     ek.use_auto()
+
+
+# ---------------------------------------------------------------------------
+# Altair: K13 altair_deltas and K14 inactivity_updates
+# ---------------------------------------------------------------------------
+
+ALTAIR_DENOM = 4 * 50331648       # INACTIVITY_SCORE_BIAS x INACTIVITY_PENALTY_QUOTIENT_ALTAIR
+
+
+def altair_columns(seed):
+    """Seeded Altair columns with the edges: every flag combination, zero
+    balances, scores 0, 1 and the recovery rate, an eff x score product
+    just under 2^63, and clamps at the first, a middle and the last of
+    the four (reward, penalty) pairs."""
+    rng, bal, eff, eligible, _ = columns(seed)
+    scores = rng.integers(0, 100, N, dtype=np.uint64)
+    part = rng.integers(0, 8, N).astype(np.uint8)
+    active = rng.random(N) < 0.85
+    part[:8] = np.arange(8)
+    eligible[:16], active[:16], eff[:16] = True, True, np.uint64(32 * GWEI)
+    scores[8:11] = [0, 1, 16]
+    bal[11], part[11] = 1, 0                              # clamps at the first pair
+    bal[12], part[12], scores[12] = 1, 5, 0               # at the middle pair (target)
+    bal[13], part[13], scores[13] = 10 * GWEI, 5, 2**27   # at the last (inactivity)
+    scores[14], part[14] = (LIMIT - 1) // (32 * GWEI), 0  # eff x score just under 2^63
+    return bal, eff, eligible, scores, part, active
+
+
+def altair_scalars(eff, in_leak):
+    total = int(eff.sum())
+    brpi = GWEI * 64 // int(np.sqrt(total))
+    return ek.AltairScalars(GWEI, brpi, (14, 26, 14), (2**20 - 5, 2**20 - 9, 2**19),
+                            2**20, 64, in_leak, ALTAIR_DENOM)
+
+
+@pytest.mark.parametrize("in_leak", [False, True])
+@pytest.mark.parametrize("flag", [0, 1, 2])
+def test_flag_deltas_plain(x64, in_leak, flag):
+    rng, _, eff, eligible, participating = columns(9)
+    br = eff // np.uint64(GWEI) * np.uint64(3000)
+    pinc, ainc, w = 2**20 - 3, 2**20, (14, 26, 14)[flag]
+    br[0] = np.uint64((LIMIT - 1) // (w * pinc))          # br x w x pinc just under 2^63
+    eligible[0] = participating[0] = True
+    kw = dict(weight=w, weight_denominator=64, participating_increments=pinc,
+              active_increments=ainc, in_leak=in_leak, is_head_flag=flag == 2)
+    got = ek.flag_deltas_plain(t(br), t(eligible), t(participating), **kw)
+    for want in both(jek.flag_deltas_kernel, br, eligible, participating, **kw):
+        for g, w_ in zip(got, want):
+            np.testing.assert_array_equal(u(g), w_)
+
+
+def test_inactivity_penalty_plain(x64):
+    bal, eff, eligible, scores, part, active = altair_columns(10)
+    target = active & ((part >> 1) & 1).astype(bool)
+    got = ek.inactivity_penalty_plain(t(eff), t(scores), t(eligible), t(target),
+                                      denominator=ALTAIR_DENOM)
+    for want in both(jek.inactivity_penalty_kernel, eff, scores, eligible, target,
+                     denominator=ALTAIR_DENOM):
+        np.testing.assert_array_equal(u(got), want)
+
+
+@pytest.mark.parametrize("in_leak", [False, True])
+def test_inactivity_score_plain(x64, in_leak):
+    _, _, eligible, scores, part, active = altair_columns(11)
+    target = active & ((part >> 1) & 1).astype(bool)
+    scores[15] = np.uint64(LIMIT - 5)                     # score + bias just under 2^63
+    kw = dict(bias=4, recovery_rate=16, in_leak=in_leak)
+    got = ek.inactivity_score_plain(t(scores), t(eligible), t(target), **kw)
+    for want in both(jek.inactivity_updates_kernel, scores, eligible, target, **kw):
+        np.testing.assert_array_equal(u(got), want)
+    # K14's plain version and its wrapper on CPU tensors take the flag column
+    for fn in (ek.inactivity_updates_plain, ek.inactivity_updates):
+        np.testing.assert_array_equal(
+            u(fn(t(scores), t(part), t(eligible), t(active), 4, 16, in_leak)), u(got))
+
+
+def _jax_altair_deltas(xp, eff, bal, scores, part, elig, active, s):
+    """The JAX kernels composed as ``_altair_rewards_and_penalties``:
+    three flag deltas and the inactivity penalty, applied pair by pair."""
+    base = (eff // xp.uint64(s.increment)) * xp.uint64(s.base_reward_per_increment)
+    pairs, target = [], None
+    for f in range(3):
+        participating = active & (((part >> f) & 1) == 1)
+        if f == 1:
+            target = participating
+        pairs.append(jek.flag_deltas_kernel(
+            xp, base, elig, participating, weight=s.weights[f],
+            weight_denominator=s.weight_denominator,
+            participating_increments=s.participating_increments[f],
+            active_increments=s.active_increments, in_leak=s.in_leak, is_head_flag=f == 2))
+    pen = jek.inactivity_penalty_kernel(xp, eff, scores, elig, target,
+                                        denominator=s.inactivity_denominator)
+    pairs.append((xp.zeros_like(bal), pen))
+    for r, p in pairs:
+        bal = jek.apply_deltas_kernel(xp, bal, r, p)
+    return bal
+
+
+@pytest.mark.parametrize("in_leak", [False, True])
+def test_altair_deltas_plain_is_the_jax_composition(x64, in_leak):
+    bal, eff, elig, scores, part, active = altair_columns(12)
+    s = altair_scalars(eff, in_leak)
+    got = u(ek.altair_deltas_plain(t(eff), t(bal), t(scores), t(part), t(elig), t(active), s))
+    want = _jax_altair_deltas(np, eff, bal, scores, part, elig, active, s)
+    np.testing.assert_array_equal(got, want)
+    dev = jax.jit(lambda *a: _jax_altair_deltas(jnp, *a, s))(eff, bal, scores, part, elig,
+                                                             active)
+    np.testing.assert_array_equal(got, np.asarray(dev))
+    wrapped = ek.altair_deltas(t(eff), t(bal), t(scores), t(part), t(elig), t(active), s)
+    np.testing.assert_array_equal(u(wrapped), want)
+    assert got[11] == 0 and got[13] == 0
+    if not in_leak:
+        # the head reward after the middle pair's clamp survives: one sum
+        # of all four pairs, clamped once, would leave nothing
+        assert got[12] > 0
+
+
+def test_altair_wrappers_reject_malformed_arguments():
+    z = torch.zeros(8, dtype=torch.int64)
+    m = torch.zeros(8, dtype=torch.bool)
+    p = torch.zeros(8, dtype=torch.uint8)
+    s = ek.AltairScalars(1, 1, (14, 26, 14), (1, 1, 1), 1, 64, False, 1)
+    with pytest.raises(TypeError):
+        ek.altair_deltas(z, z, z, z, m, m, s)             # flags must be uint8
+    with pytest.raises(ValueError):
+        ek.inactivity_updates(z, p[:4], m, m, 4, 16, False)
+    with pytest.raises(ValueError):
+        ek.altair_deltas(z, z, z, p, m, m.to("meta"), s)
+
+
+def test_altair_bound_helpers():
+    """The bytes and operations K13/K14 need grow with the eligible lanes
+    and stay within 35 and 19 bytes per lane."""
+    elig = torch.tensor([True, True, False, True])
+    part = torch.tensor([2, 0, 7, 7], dtype=torch.uint8)
+    active = torch.tensor([True, True, True, False])
+    assert ek.altair_deltas_bytes(elig, part, active) == 4 * 17 + 3 * 10 + 8 * 2
+    assert ek.altair_deltas_bytes(elig, part, active) <= 35 * 4
+    assert ek.inactivity_updates_bytes(elig) == 4 * 17 + 3 * 2 <= 19 * 4
+    assert ek.altair_deltas_ops(elig) > ek.inactivity_updates_ops(elig) > 0
