@@ -7,6 +7,17 @@ Altair block and an Altair epoch transition (the epochs and the cold and
 post-epoch roots through the mesh engine), time.
 
     python3 chip_smoke.py [--validators N]
+    python3 chip_smoke.py --probe [--root DIR] [--sweep RUNS]
+
+``--probe`` runs no phase: it times K8 at the path's three shapes (with
+its stages) and K15 at the epoch engine's max-only and rewards calls
+beside ``torch.amax`` and an empty launch, through the wrappers alone, so
+that it measures any tree of the port: ``--root`` names a checkout of it
+inside this one (an unpacked parent commit; default: this checkout).
+With ``--sweep RUNS`` it then times the columnar engine against the mesh
+engine at 2^12, 2^14 and 2^16 validators on both forks, the least of
+RUNS runs each, every run's root equal.  Its last line is one JSON
+object of what it measured.
 
 Phases, each fatal on failure (no phase's failure is caught):
 
@@ -50,8 +61,11 @@ Phases, each fatal on failure (no phase's failure is caught):
 7. hold K7 ``expand_windows``, K8 ``g1_msm`` and K9 ``fr_butterfly``
    byte-identical to their plain versions on the card and to the oracle
    (MSMs at N = 1, 3, 8, 300 with the scalars 0, 1, r - 1, a repeated
-   base, P beside -P and the point at infinity; FFTs at n = 2, 256, 8192
-   forward, inverse and round trip against the host ``fft_field``);
+   base, P beside -P and the point at infinity; K8 also on skewed digits:
+   every scalar one repeated byte, all 32 N lanes in one bucket, and a
+   single live lane at N = 1024, every other point at infinity at N =
+   4096; FFTs at n = 2, 256, 8192 forward, inverse and round trip against
+   the host ``fft_field``);
 8. a block's blobs through the port's KZG library on the card
    (``bls.use_torch()``, the real trusted setup): six blobs of 4096
    seeded field elements, a commitment and a proof each (12 MSMs of 4096
@@ -64,7 +78,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    on K9, every launch held against the plain version) equal to the
    original cells; cell proofs for 8 columns x 6 blobs (MSMs of 4032
    monomial points on K8) verified by ``verify_cell_proof_batch`` with
-   one K4 launch, a changed cell rejected; recovery and verify timed;
+   one K4 launch, a changed cell rejected; every K8 call of the sampling
+   held against its plain version (the first on each window table
+   replayed, all of them through one seeded weighted sum per table);
+   recovery and verify timed;
 10. a mainnet phase0 epoch transition through the port's
    ``process_slots`` with the epoch engine on the card
    (``epoch_kernels.use_vectorized()``): K10 ``phase0_deltas``, K11
@@ -88,9 +105,7 @@ Phases, each fatal on failure (no phase's failure is caught):
    a ``fork_state`` copy and at the hashlib root of a fresh
    deserialization, and every K10-K12 and K15-K18 call is held against
    its plain version; at 4,096 validators the spec loops, the columnar
-   engine and the mesh engine give identical roots, leaking and not, and
-   the columnar and the mesh engine are timed (and give equal roots) at
-   2^12, 2^14 and 2^16 validators, not leaking.
+   engine and the mesh engine give identical roots, leaking and not.
    Stages, copies and K10-K12 per launch (CUDA events, beside bounds and
    plain versions) are timed;
 11. time K10-K12 per launch at the leaking run's arguments (CUDA events,
@@ -136,7 +151,8 @@ Phases, each fatal on failure (no phase's failure is caught):
 15. (run right after phase 5) hold K15 ``epoch_reduce``, K16
    ``incl_scan`` and K17 ``registry_scan`` byte-identical to their plain
    versions on the card at 1, 1000 and 2^20 lanes with S = 1 and 4 spans
-   (FAR epochs, sums past 2^63, maxima at 2^64 - 1, every flag
+   (K15 in each of the epoch engine's five calls, its dispatch set, and
+   a call outside it refused; span starts off a 16-byte boundary; FAR epochs, sums past 2^63, maxima at 2^64 - 1, every flag
    combination, duplicate and pad inclusion entries with keys up to the
    sentinel, a cap overflow, every lane a candidate), and K18
    ``merkle_levels`` to its plain version and every level to hashlib on
@@ -145,8 +161,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    span-built tree updated incrementally to a fresh build;
 16. time K15-K18 per launch at the main path's calls (CUDA events,
    queued ahead) beside their bounds, plain versions and, where one
-   PyTorch call computes the same function, that call; print the
-   ``kernels`` line (K1-K18), the card line and the result line.
+   PyTorch call computes the same function, that call, and an empty
+   launch; print the ``kernels`` line (K1-K18, every number measured in
+   this run but the bounds; K8 with its per-stage times at the
+   commitment, cell and verify shapes), the card line and the result
+   line.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
@@ -771,6 +790,9 @@ def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
 # ---------------------------------------------------------------------------
 
 MSM_SIZES = (1, 3, 8, 300)
+# K8's skewed inputs (phase 7): the one-bucket and single-lane MSMs, and the
+# one with every other point at infinity
+K8_SKEW_POINTS = (1024, 4096)
 FFT_SIZES = (2, 256, 8192)
 BLOBS = 6                   # MAX_BLOBS_PER_BLOCK (presets/mainnet/deneb.yaml)
 SAMPLED_COLUMNS = 8         # columns whose cell proofs are made and checked
@@ -864,7 +886,8 @@ def plain_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES) -> dict:
+def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES,
+                         skew_sizes=K8_SKEW_POINTS) -> dict:
     """Phase 7: K7, K8 and K9 byte-identical to their plain versions on the
     card and to the oracle on small seeded inputs; returns the largest
     word difference of each (0)."""
@@ -906,11 +929,100 @@ def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES) -
         check(inv == [K7.fft_field(row, roots, inv=True) for row in rows], f"K9 inverse at n={n}")
         check(back == rows, f"K9 round trip at n={n}")
         err["fr_butterfly"] = max(err["fr_butterfly"], k9.hold(fr_fft.fr_butterfly_plain))
+    err["g1_msm"] = max(err["g1_msm"], k8_skew_checks(torch, dev, skew_sizes))
     print(f"kernel checks (small inputs): K7 and K8 at N = {', '.join(map(str, msm_sizes))} "
           f"(scalars 0, 1, r - 1; a repeated base, P with -P, the point at infinity) and "
           f"K9 at every stage of n = {', '.join(map(str, fft_sizes))} (forward, inverse, "
           f"round trip) byte-identical to their plain versions on the card, to the oracle's "
           f"Pippenger and to the host fft_field (tolerance 0: integer outputs)")
+    return err
+
+
+def k8_skew_checks(torch, dev, sizes=K8_SKEW_POINTS) -> int:
+    """K8 on skewed digits over a seeded progression P_i = A + i B: every
+    scalar the byte 0x5A repeated (all 32 N lanes in one bucket) and a
+    single live lane at N = sizes[0], uniform scalars with every other
+    point at infinity at N = sizes[1]; each held against the plain
+    version on the card and against the oracle, which sums the finite
+    points' terms as [sum k_i] A + [sum i k_i] B.  Returns the largest
+    word difference (0)."""
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import msm
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    r = K.BLS_MODULUS
+    a, b = (G1_GENERATOR.mult(v) for v in field_elements(b"msm-skew", 2, r))
+    pts, p = [], a
+    for _ in range(max(sizes)):
+        pts.append(p)
+        p = p + b
+    small, big = sizes
+    uniform = field_elements(b"msm-skew-scalars", big, r)
+    cases = (("every scalar one repeated byte", small,
+              [int.from_bytes(bytes([0x5A]) * 32, "little")] * small, False),
+             ("a single live lane", small, [0] * (small - 1) + [1 << 200], False),
+             ("every other point at infinity", big, uniform, True))
+    err, t0 = 0, time.perf_counter()
+    for name, n, scalars, halved in cases:
+        aff, inf = C.pack_g1(pts[:n])
+        if halved:
+            inf[::2] = True
+        win = msm.expand_windows(aff.to(dev), inf.to(dev))
+        sc = msm.scalar_words(scalars).to(dev)
+        out = msm.msm_core(win, sc)
+        err = max(err, compare(torch, f"K8 ({name}, N={n})", out, msm.msm_core_plain(win, sc)))
+        live = range(1, n, 2) if halved else range(n)
+        want = a.mult(sum(scalars[i] for i in live) % r) + b.mult(
+            sum(i * scalars[i] for i in live) % r)
+        check(C.unpack_g1(out[0][None], out[1].reshape(1))[0] == want,
+              f"K8 differs from the oracle ({name}, N={n})")
+    print(f"kernel checks: K8 with every scalar one repeated byte and with a single live lane "
+          f"at N = {small}, every other point at infinity at N = {big}, byte-identical to its "
+          f"plain version on the card and equal to the oracle ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def k8_hold_every(torch, rec) -> int:
+    """Every K8 call that ``rec`` kept, held against ``msm_core_plain`` at
+    the cost of two plain calls per window table.  The first call on each
+    table is replayed as it was; all of them are held at once through
+    seeded 64-bit weights w_k: the table's points have order r, so
+    sum_k [w_k] K8(T, s_k) must equal msm_core_plain(T, sum_k w_k s_k mod r).
+    The oracle sums the left side on the host.  A wrong output passes only
+    if the seeded weights happen to cancel its error.  Returns the largest
+    word difference of the replays (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import msm
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1Point
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    r = K.BLS_MODULUS
+    groups = []                         # [(table, [(scalars, outputs)])]
+    for args, out in rec.calls:
+        win, sc = args
+        group = next((g for g in groups if g[0].shape == win.shape and torch.equal(g[0], win)),
+                     None)
+        if group is None:
+            group = (win, [])
+            groups.append(group)
+        group[1].append((sc, out))
+    err = 0
+    for gi, (win, calls) in enumerate(groups):
+        sc0, out0 = calls[0]
+        err = max(err, compare(torch, f"K8 at {tuple(win.shape)}", out0,
+                               as_tuple(msm.msm_core_plain(win, sc0))))
+        weights = field_elements(b"k8-weights" + bytes([gi]), len(calls), 1 << 64)
+        comb = [0] * win.shape[1]
+        want = G1Point.inf()
+        for w, (sc, out) in zip(weights, calls):
+            raw = np.ascontiguousarray(sc.cpu().numpy()).view("<u4")
+            for i, row in enumerate(raw):
+                comb[i] += w * int.from_bytes(row.tobytes(), "little")
+            want = want + C.unpack_g1(out[0][None].cpu(), out[1].reshape(1).cpu())[0].mult(w)
+        aff, inf = msm.msm_core_plain(win, msm.scalar_words([c % r for c in comb]).to(win.device))
+        check(C.unpack_g1(aff[None].cpu(), inf.reshape(1).cpu())[0] == want,
+              f"K8: the weighted sum of its {len(calls)} calls on the table "
+              f"{tuple(win.shape)} differs from the plain version's MSM of the weighted scalars")
     return err
 
 
@@ -1077,7 +1189,7 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
     # -- stage 3: sampling ----------------------------------------------------
     cols = sorted(order[n_cells // 2:][:n_cols])
     with CallRecorder(torch, msm, "expand_windows", first_of_shape=True) as k7, \
-            CallRecorder(torch, msm, "msm_core", first_of_shape=True) as k8, \
+            CallRecorder(torch, msm, "msm_core") as k8, \
             CallRecorder(torch, bls_torch, "pairing_check", first_of_shape=True) as k4:
         _build.reset_launches()
         phost = StageClock()
@@ -1123,13 +1235,17 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
         check(D.verify_cell_proof_batch(cs, row_ids, col_ids, bad, proofs, setup) is False,
               "the cell batch with one element changed must fail")
     err7 = k7.hold(msm.expand_windows_plain)
-    err8 = k8.hold(msm.msm_core_plain)
+    t0 = time.perf_counter()
+    err8 = k8_hold_every(torch, k8)
+    t_hold8 = time.perf_counter() - t0
     err4 = k4.hold(pairing.pairing_check_plain)
     n = len(proofs)
     print(f"sampling: {n} cell proofs ({len(cols)} columns x {len(blobs)} blobs) verify as "
           f"one batch with one K4 launch, one changed element fails it; launches {launches}; "
-          f"the first K7/K8/K4 call of every shape equal to its plain version "
-          f"({sorted({str(k8.shapes(a)) for a, _ in k8.calls})})")
+          f"the first K7/K4 call of every shape equal to its plain version; every one of the "
+          f"{k8.count} K8 calls held against its plain version (the first on each window "
+          f"table replayed, all through a seeded weighted sum per table; "
+          f"{sorted({str(k8.shapes(a)) for a, _ in k8.calls})}; {t_hold8:.1f} s)")
     print(f"time cell proofs: {proofs_ms:.2f} ms for {n} ({proofs_ms / n:.2f} each, host "
           f"polynomial work included); verify_cell_proof_batch: {vcell_ms:.2f} ms = device "
           f"(synchronized) {sum(clock.ms.values()):.2f} + host "
@@ -1188,6 +1304,8 @@ def slice3_entries(torch, card, blob, das, err, launches) -> list:
         ladder = fq_bound(msm.msm_core_ladder_fq_products(win, sc))
         k8[tag] = (int(win.shape[1]), ms, max(ops, byt), "operations" if ops >= byt else "bytes",
                    ladder)
+    stages = {tag: msm.msm_core_stage_ms(*args) for tag, args in
+              (("commit", blob["k8"]), ("cell", das["k8_cell"]), ("verify", blob["k8_small"]))}
     win, sc = blob["k8"]
     k8_plain = plain_ms(torch, lambda: msm.msm_core_plain(win, sc))
     n, ms, bound, by, _ = k8["commit"]
@@ -1195,12 +1313,17 @@ def slice3_entries(torch, card, blob, das, err, launches) -> list:
                 "replaces": "consensus_specs_tpu/ops/jax_bls/msm.py:48",
                 "launches": launches["g1_msm"], "max_abs_err": err["g1_msm"], "ms": ms,
                 "plain_ms": k8_plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "points": n, "other_shapes": {t: {"points": v[0], "ms": v[1], "bound_ms": v[2]}
-                                              for t, v in k8.items() if t != "commit"}})
+                "points": n, "stages_ms": stages["commit"],
+                "other_shapes": {t: {"points": v[0], "ms": v[1], "bound_ms": v[2],
+                                     "stages_ms": stages[t]}
+                                 for t, v in k8.items() if t != "commit"}})
     print("time g1_msm: " + "; ".join(f"{t} N={v[0]} {v[1]:.3f} ms (bound {v[2]:.5f} ms, {v[3]}; "
-                                      f"K8's own per-lane ladders at that rate {v[4]:.5f} ms)"
+                                      f"one ladder per lane at that rate {v[4]:.5f} ms)"
                                       for t, v in k8.items())
           + f"; plain at N={n} {k8_plain:.1f} ms on {card}")
+    for tag, st in stages.items():
+        print(f"time g1_msm stages at the {tag} shape (ms per call, device, {st['launches']} "
+              f"launches): " + ", ".join(f"{k} {st[k]:.5f}" for k in msm.STAGES) + f" on {card}")
     vals, tw, half = das["k9"]
     rows, npts = vals.shape[0], vals.shape[1]
     v = vals.clone()
@@ -1573,13 +1696,11 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
             "plain_slots_ms": t_plain, "in_leak": in_leak}
 
 
-def reduced_epoch_leg(torch, dev, spec, base, n: int, sweep=None) -> None:
+def reduced_epoch_leg(torch, dev, spec, base, n: int) -> None:
     """The same construction at ``n`` validators (``base``): the port's
     spec loops, its columnar engine (below the mesh floor) and its mesh
     engine (``use_mesh``) on the card give identical post-state roots, not
-    leaking and leaking.  Then the two engines timed around the mesh
-    floor (:func:`engine_sweep`) on ``base`` and the states of ``sweep``
-    ({validators: state})."""
+    leaking and leaking."""
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     from consensus_specs_tpu_torch.parallel import mesh_epoch as me
     from consensus_specs_tpu_torch.parallel import mesh_state
@@ -1616,63 +1737,6 @@ def reduced_epoch_leg(torch, dev, spec, base, n: int, sweep=None) -> None:
     print(f"reduced leg ({spec.fork}): {n} validators, leak {out}: the spec loops, the "
           f"columnar engine and the mesh engine on the card give identical post-state roots "
           f"({time.perf_counter() - t0:.2f} s)")
-    states = {n: base}
-    states.update(sweep or {})
-    engine_sweep(torch, dev, spec, states)
-
-
-SWEEP_VALIDATORS = (1 << 12, 1 << 14, 1 << 16)     # around the mesh floor (2^16)
-
-
-def engine_sweep(torch, dev, spec, states: dict) -> dict:
-    """The columnar engine (``use_fallback``) against the mesh engine
-    (``use_mesh``, floors bypassed) on the card, not leaking, at each
-    registry size of ``states``: the wall ms of the sub-transitions the
-    engines serve and of the post-state root (span builds on the mesh
-    side from 2^14 chunks), each the least of two runs on fresh forks
-    (order: columnar, mesh, mesh, columnar; a fresh fork's registry
-    columns are not on the card yet).  The two engines' roots must be
-    equal.  Returns {validators: {engine: (subs ms, root ms)}}."""
-    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
-    from consensus_specs_tpu_torch.parallel import mesh_state
-    from consensus_specs_tpu_torch.state import arrays as state_arrays
-    from consensus_specs_tpu_torch.utils import ssz
-    subs = EPOCH_PATHS[spec.fork]["subs"]
-    out = {}
-    ek.use_vectorized(dev)
-    for n, pre in sorted(states.items()):
-        best, roots = {}, {}
-        for engine in ("columnar", "mesh", "mesh", "columnar"):
-            (mesh_state.use_mesh if engine == "mesh" else mesh_state.use_fallback)()
-            s = state_arrays.fork_state(pre)
-            clock = StageClock(sync=torch.cuda.synchronize)
-            for name in subs:
-                clock.wrap(spec, name)
-            try:
-                spec.process_slots(s, EPOCH_SLOT + 1)
-            finally:
-                clock.restore()
-                for name in subs:
-                    delattr(spec, name)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            root = bytes(ssz.hash_tree_root(s))
-            torch.cuda.synchronize()
-            t_root = (time.perf_counter() - t0) * 1e3
-            sub_ms = sum(clock.ms.values())
-            old = best.get(engine, (float("inf"), float("inf")))
-            best[engine] = (min(old[0], sub_ms), min(old[1], t_root))
-            roots.setdefault(engine, root)
-            check(roots[engine] == root and roots.get("columnar", root) == root,
-                  f"engine sweep ({spec.fork}, {n} validators): the engines' roots differ")
-        out[n] = best
-    mesh_state.use_auto()
-    print(f"engine sweep ({spec.fork}, not leaking): sub-transitions ms / post-state root ms, "
-          f"least of two runs, columnar vs mesh: "
-          + "; ".join(f"{n} validators {b['columnar'][0]:.2f} / {b['columnar'][1]:.2f} vs "
-                      f"{b['mesh'][0]:.2f} / {b['mesh'][1]:.2f}" for n, b in out.items())
-          + " (equal roots)")
-    return out
 
 
 def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
@@ -1715,10 +1779,7 @@ def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two runs must be one not leaking and one leaking")
     n = REDUCED_VALIDATORS
-    sweep = {m: epoch_state(spec, ssz, np, pks, m, seed=m) for m in SWEEP_VALIDATORS
-             if m != n and m < n_validators}
-    reduced_epoch_leg(torch, dev, spec, epoch_state(spec, ssz, np, pks, n, seed=n), n, sweep)
-    del sweep
+    reduced_epoch_leg(torch, dev, spec, epoch_state(spec, ssz, np, pks, n, seed=n), n)
     bls.bls_active = True
     # phase 14 upgrades the untouched base to Altair
     return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold, "base": base}
@@ -2117,17 +2178,13 @@ def altair_epoch_phase(torch, dev, card, pks, pre, err: int) -> dict:
     runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "altair leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two altair runs must be one not leaking and one leaking")
-    n_validators = len(base.validators)
     del base
     bls.bls_active = True
     n = REDUCED_VALIDATORS
     p0 = build_spec("phase0", "mainnet")
-    small = {m: altair_epoch_state(spec, ssz, np, epoch_state(p0, ssz, np, pks, m, seed=m),
-                                   seed=m)
-             for m in SWEEP_VALIDATORS if m == n or m < n_validators}
+    small = altair_epoch_state(spec, ssz, np, epoch_state(p0, ssz, np, pks, n, seed=n), seed=n)
     bls.bls_active = False
-    reduced_epoch_leg(torch, dev, spec, small.pop(n), n, small)
-    del small
+    reduced_epoch_leg(torch, dev, spec, small, n)
     bls.bls_active = True
     return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold,
             "build_s": t_build}
@@ -2147,6 +2204,7 @@ MESH_REPLACES = {
 }
 MERKLE_COUNTS = (2**14 - 1, 2**14, 2**14 + 1, 3 * 2**13 + 5)     # and the run's 2^20
 FAR = 2**64 - 1
+MASKS_ALONE = ("eligible", "active", "target")      # a K15 call no path makes
 COLD_K5 = {1 << 20: 17}     # K5 launches of phase 6's cold root, at the default registry
 
 
@@ -2248,21 +2306,32 @@ def mesh_kernel_checks(torch, dev, n_lanes: int) -> int:
             reg = {k: t[k] for k in ("eff", "act", "ext", "wd", "sl")}
             rows = torch.from_numpy(np.random.default_rng(n).random((3, nn)) < 0.5).to(dev)
             rows[:, n:] = False
+            # the epoch engine's five calls (K15's dispatch set), two of
+            # them again at the FAR epochs
             calls = [
-                dict(max_cols=(t["eff"], t["scores"], t["bal"]), sums=True, part=t["part"],
-                     n_flags=3, masks=("eligible", "active"), prev=5, cur=6),
-                dict(max_cols=(t["eff"], t["bal"]), sums=True, rows=rows,
+                dict(reg=reg, max_cols=(t["eff"], t["scores"], t["bal"]), sums=True,
+                     part=t["part"], n_flags=3, masks=("eligible", "active"), prev=5, cur=6),
+                dict(reg=reg, max_cols=(t["eff"], t["bal"]), sums=True, rows=rows,
                      masks=("eligible",), prev=5, cur=6),
-                dict(max_cols=(t["eff"],), sums=True, masks=("target",), cur=6, tgt=7),
-                dict(masks=("eligible", "active", "target"), prev=FAR - 1, cur=FAR, tgt=FAR),
+                dict(reg=reg, max_cols=(t["scores"],), masks=("eligible", "active"), prev=5),
+                dict(reg=reg, max_cols=(t["eff"],), sums=True, masks=("target",), cur=6, tgt=7),
+                dict(max_cols=(t["bal"], t["eff"])),
+                dict(reg=reg, max_cols=(t["scores"],), masks=("eligible", "active"),
+                     prev=FAR - 1),
+                dict(reg=reg, max_cols=(t["eff"],), sums=True, masks=("target",), cur=FAR,
+                     tgt=FAR),
             ]
             for i, kw in enumerate(calls):
                 err = max(err, compare(torch, f"K15 (n={n}, S={spans}, call {i})",
-                                       me.epoch_reduce(reg, spans=spans, **kw),
-                                       me.epoch_reduce_plain(reg, spans=spans, **kw)))
-            kw = dict(max_cols=(t["bal"], t["scores"]), spans=spans)
-            err = max(err, compare(torch, f"K15 max (n={n}, S={spans})", me.epoch_reduce(**kw),
-                                   me.epoch_reduce_plain(**kw)))
+                                       me.epoch_reduce(spans=spans, **kw),
+                                       me.epoch_reduce_plain(spans=spans, **kw)))
+            # a combination outside the dispatch set is refused, not run
+            try:
+                me.epoch_reduce(reg, masks=MASKS_ALONE, prev=5, cur=6, tgt=7, spans=spans)
+            except RuntimeError:
+                pass
+            else:
+                fail("K15 ran a call outside its dispatch set (the masks alone)")
             # K16: every lane once, then a third of them again at equal or
             # larger keys, pad and out-of-range entries, keys >= 2^63
             rng = np.random.default_rng(n * 7 + spans)
@@ -2298,7 +2367,8 @@ def mesh_kernel_checks(torch, dev, n_lanes: int) -> int:
                         check(int(got.counts[0].sum()) == n,
                               "K17: every lane must be a queue candidate")
     torch.cuda.synchronize()
-    print(f"kernel checks (small inputs): K15 (four sum/max/mask combinations and max alone), "
+    print(f"kernel checks (small inputs): K15 (the epoch engine's five calls, two again at "
+          f"the FAR epochs; the masks alone refused), "
           f"K16 (duplicates, pads, out-of-range entries, keys >= 2^63 and the sentinel) and K17 "
           f"(cap 256 with an overflow at {n_lanes}, cap = the span's lanes, every lane a "
           f"candidate; with and without fill) at n = 1, 1000, {n_lanes} with S = 1 and 4 byte-identical to their plain "
@@ -2457,12 +2527,16 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
     stacked = torch.stack(max_call[1]["max_cols"])
     s_ms = queued_ms(torch, lambda: me.epoch_reduce(*sum_call[0], **sum_call[1]))
     s_bytes, s_ops = mesh_bound("epoch_reduce", *sum_call)
+    empty_ms = queued_ms(torch, lambda: torch.cuda._sleep(0))
     out.append(mesh_entry(torch, card, "epoch_reduce", max_call, launches["epoch_reduce"],
                           err["epoch_reduce"], lambda: torch.amax(stacked, dim=1),
-                          {"sum_mode_ms": s_ms, "sum_mode_bound_ms":
-                           max(s_bytes / HBM_BYTES_PER_S, s_ops / INT32_OPS_PER_S) * 1e3}))
+                          {"sum_mode_ms": s_ms,
+                           "sum_mode_bound_ms":
+                           max(s_bytes / HBM_BYTES_PER_S, s_ops / INT32_OPS_PER_S) * 1e3,
+                           "empty_launch_ms": empty_ms}))
     print(f"time epoch_reduce (the rewards call: sums, maxima, the eligibility mask): "
-          f"{s_ms:.4f} ms per launch queued ahead on {card}")
+          f"{s_ms:.4f} ms per launch queued ahead; an empty launch (torch.cuda._sleep(0)) "
+          f"{empty_ms:.5f} ms queued ahead on {card}")
     args, kw = run["calls"]["incl_scan"][0][0], run["kwargs"]["incl_scan"][0]
     base = torch.full((args[2],), 2**63 - 1, dtype=torch.int64, device=args[0].device)
     out.append(mesh_entry(torch, card, "incl_scan", (args, kw), launches["incl_scan"],
@@ -2482,23 +2556,208 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
     return out
 
 
+# ---------------------------------------------------------------------------
+# --probe: K8 and K15 timed through their wrappers; the engine sweep
+# ---------------------------------------------------------------------------
+
+PROBE_POINTS = 4096
+PROBE_K8_SHAPES = (("commit", 4096), ("cell", 4032), ("verify", 6))
+SWEEP_VALIDATORS = (1 << 12, 1 << 14, 1 << 16)     # around the mesh floor (2^16)
+SWEEP_KEYS = 64                                     # registry keys the sweep's states cycle over
+
+
+def probe_k8(torch, dev) -> dict:
+    """K8 on K7's table of 4096 seeded points P_i = A + i B with uniform
+    scalars below r, at the commitment, cell and verify shapes: device ms
+    per call queued ahead and back to back from the host, and per stage
+    where the tree has ``msm_core_stage_ms``.  The verify shape is held
+    against the plain version first."""
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import msm
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    r = K.BLS_MODULUS
+    a, b = (G1_GENERATOR.mult(v) for v in field_elements(b"probe-k8", 2, r))
+    pts, p = [], a
+    for _ in range(PROBE_POINTS):
+        pts.append(p)
+        p = p + b
+    aff, inf = (t.to(dev) for t in C.pack_g1(pts))
+    win = msm.expand_windows(aff, inf)
+    scalars = field_elements(b"probe-k8-scalars", PROBE_POINTS, r)
+    out = {}
+    for tag, n in PROBE_K8_SHAPES:
+        w = win[:, :n].contiguous()
+        sc = msm.scalar_words(scalars[:n]).to(dev)
+        if tag == "verify":
+            compare(torch, "K8 (probe, verify shape)", msm.msm_core(w, sc),
+                    msm.msm_core_plain(w, sc))
+        out[tag] = {"points": n, "queued_ms": queued_ms(torch, lambda: msm.msm_core(w, sc), 10),
+                    "host_ms": cuda_ms(torch, lambda: msm.msm_core(w, sc), 5)}
+        if hasattr(msm, "msm_core_stage_ms"):
+            out[tag]["stages_ms"] = msm.msm_core_stage_ms(w, sc)
+    return out
+
+
+def probe_k15(torch, dev) -> dict:
+    """K15 on seeded 2^20-lane registry columns, one span, at the epoch
+    engine's effective-balance call (maxima alone) and its phase0 and
+    Altair rewards calls, each held against the plain version first;
+    beside them ``torch.amax`` over the max-only call's stacked columns and
+    an empty launch.  Device ms per call, queued ahead."""
+    import numpy as np
+    from consensus_specs_tpu_torch.parallel import mesh_epoch as me
+    c = mesh_columns(np, VALIDATORS, 1, seed=11)
+    t = {k: torch.from_numpy(v.view(np.int64) if v.dtype == np.uint64 else v).to(dev)
+         for k, v in c.items()}
+    rows = torch.from_numpy(np.random.default_rng(11).random((3, VALIDATORS)) < 0.5).to(dev)
+    reg = {k: t[k] for k in ("eff", "act", "ext", "wd", "sl")}
+    calls = {
+        "max mode (effective balances)": dict(max_cols=(t["bal"], t["eff"])),
+        "phase0 rewards": dict(reg=reg, max_cols=(t["eff"], t["bal"]), sums=True, rows=rows,
+                               masks=("eligible",), prev=5, cur=6),
+        "Altair rewards": dict(reg=reg, max_cols=(t["eff"], t["scores"], t["bal"]), sums=True,
+                               part=t["part"], n_flags=3, masks=("eligible", "active"), prev=5,
+                               cur=6),
+    }
+    out = {}
+    for name, kw in calls.items():
+        compare(torch, f"K15 (probe, {name})", me.epoch_reduce(**kw), me.epoch_reduce_plain(**kw))
+        out[name] = queued_ms(torch, lambda: me.epoch_reduce(**kw), 50)
+    stacked = torch.stack((t["bal"], t["eff"]))
+    out["torch.amax (max mode's columns)"] = queued_ms(torch, lambda: torch.amax(stacked, dim=1),
+                                                       50)
+    out["empty launch (torch.cuda._sleep(0))"] = queued_ms(torch, lambda: torch.cuda._sleep(0), 50)
+    return out
+
+
+def engine_sweep(torch, dev, spec, states: dict, runs: int) -> dict:
+    """The columnar engine (``use_fallback``) against the mesh engine
+    (``use_mesh``, floors bypassed) on the card, not leaking, at each
+    registry size of ``states``: the wall ms of the sub-transitions the
+    engines serve and of the post-state root (span builds on the mesh
+    side from 2^14 chunks), each the least of ``runs`` runs on fresh forks
+    (a fresh fork's registry columns are not on the card yet; the
+    engines alternate, columnar first, then mesh first, and so on).
+    Every run's root must equal the first's.  Returns {validators:
+    {engine: (subs ms, root ms)}}."""
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.parallel import mesh_state
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import ssz
+    subs = EPOCH_PATHS[spec.fork]["subs"]
+    out = {}
+    ek.use_vectorized(dev)
+    for n, pre in sorted(states.items()):
+        best, first = {}, None
+        for i in range(runs):
+            for engine in ("columnar", "mesh")[::1 - 2 * (i % 2)]:
+                (mesh_state.use_mesh if engine == "mesh" else mesh_state.use_fallback)()
+                s = state_arrays.fork_state(pre)
+                clock = StageClock(sync=torch.cuda.synchronize)
+                for name in subs:
+                    clock.wrap(spec, name)
+                try:
+                    spec.process_slots(s, EPOCH_SLOT + 1)
+                finally:
+                    clock.restore()
+                    for name in subs:
+                        delattr(spec, name)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                root = bytes(ssz.hash_tree_root(s))
+                torch.cuda.synchronize()
+                t_root = (time.perf_counter() - t0) * 1e3
+                old = best.get(engine, (float("inf"), float("inf")))
+                best[engine] = (min(old[0], sum(clock.ms.values())), min(old[1], t_root))
+                first = first or root
+                check(root == first, f"engine sweep ({spec.fork}, {n} validators, run {i}, "
+                                     f"{engine}): the root differs from the first run's")
+        out[n] = best
+    mesh_state.use_auto()
+    print(f"engine sweep ({spec.fork}, not leaking): sub-transitions ms / post-state root ms, "
+          f"least of {runs} runs, columnar vs mesh: "
+          + "; ".join(f"{n} validators {b['columnar'][0]:.2f} / {b['columnar'][1]:.2f} vs "
+                      f"{b['mesh'][0]:.2f} / {b['mesh'][1]:.2f}" for n, b in out.items())
+          + " (equal roots)")
+    return out
+
+
+def probe_sweep(torch, dev, runs: int) -> dict:
+    """:func:`engine_sweep` on phase0 states of :data:`SWEEP_VALIDATORS`
+    validators (``epoch_state``, keys cycling over :data:`SWEEP_KEYS`
+    registry keys) and on their ``upgrade_to_altair`` (``altair_epoch_state``)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    bls.use_torch()
+    sha256.install_merkle_hasher(dev)
+    sks = [int.from_bytes(hashlib.sha256(SEED + b"sk" + i.to_bytes(4, "little")).digest(),
+                          "little") % (R_ORDER - 1) + 1 for i in range(SWEEP_KEYS)]
+    pks = [O.SkToPk(sk) for sk in sks]
+    p0, alt = build_spec("phase0", "mainnet"), build_spec("altair", "mainnet")
+    base = {m: epoch_state(p0, ssz, np, pks, m, seed=m) for m in SWEEP_VALIDATORS}
+    upgraded = {m: altair_epoch_state(alt, ssz, np, epoch_state(p0, ssz, np, pks, m, seed=m),
+                                      seed=m) for m in SWEEP_VALIDATORS}
+    bls.bls_active = False              # epoch processing verifies no signature
+    try:
+        return {"phase0": engine_sweep(torch, dev, p0, base, runs),
+                "altair": engine_sweep(torch, dev, alt, upgraded, runs)}
+    finally:
+        bls.bls_active = True
+
+
+def probe_main(torch, card: str, root: str, runs: int) -> int:
+    from consensus_specs_tpu_torch import _build
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build_all()
+    result = {"root": root, "card": card, "build_s": time.perf_counter() - t0,
+              "k8": probe_k8(torch, dev), "k15": probe_k15(torch, dev)}
+    for tag, v in result["k8"].items():
+        print(f"K8 {tag}: {json.dumps(v)} on {card}")
+    for name, ms in result["k15"].items():
+        print(f"K15 {name}: {ms:.5f} ms per call queued ahead on {card}")
+    if runs:
+        result["sweep"] = probe_sweep(torch, dev, runs)
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
                     help="active validators of the phase0 and Altair states (default 2^20)")
+    ap.add_argument("--probe", action="store_true",
+                    help="time K8 and K15 through their wrappers instead of the phases")
+    ap.add_argument("--root", default=None,
+                    help="with --probe: a checkout of the port inside this one to measure")
+    ap.add_argument("--sweep", type=int, default=0, metavar="RUNS",
+                    help="with --probe: the engine sweep, the least of RUNS runs each")
     opts = ap.parse_args(argv)
+    if (opts.root or opts.sweep) and not opts.probe:
+        ap.error("--root and --sweep go with --probe")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    here = os.path.realpath(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.realpath(opts.root or here)
+    if os.path.commonpath([root, here]) != here:
+        ap.error("--root must lie inside this checkout")
+    sys.path.insert(0, root)
     try:
         from consensus_specs_tpu_torch import _build
     except ImportError as exc:
         print(f"chip_smoke: the port's package is missing ({exc})", file=sys.stderr)
         return 2
+    if opts.probe:
+        return probe_main(torch, card_line(), os.path.relpath(root, here), opts.sweep)
     from consensus_specs_tpu_torch.ops import bls_torch, bls_rlc
     from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
     from consensus_specs_tpu_torch.ops.bls12_381 import hash_to_curve as OH

@@ -91,6 +91,7 @@ def constants_header() -> str:
            f"#define BLS_P_WORDS {_words(P)}",
            f"#define BLS_N0 0x{n0:08x}u",
            f"#define BLS_ONE_WORDS {_words(_mont(1))}",
+           f"#define BLS_R3_WORDS {_words(pow(2, 3 * 384, P))}",
            f"#define BLS_EXP_INV {_words(P - 2)}",
            f"#define BLS_EXP_SQRT {_words((P + 1) // 4)}",
            f"#define BLS_EXP_LEGENDRE {_words((P - 1) // 2)}",
@@ -215,7 +216,7 @@ _SIGS = {
     "hash64": [_VP, _VP, ctypes.c_int, _VP],
     "sha256_blocks": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP],
     "expand_windows": [_VP, _VP, _VP, ctypes.c_int, _VP],
-    "g1_msm": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
+    "g1_msm": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, ctypes.c_int, _VP, _VP],
     "fr_butterfly": [_VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     "phase0_deltas": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP],
     "effective_balance": [_VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 4
@@ -225,7 +226,7 @@ _SIGS = {
     "altair_deltas": [_VP] * 7 + [ctypes.c_longlong, _VP, _VP],
     "inactivity_updates": [_VP] * 5 + [ctypes.c_longlong, ctypes.c_ulonglong,
                                        ctypes.c_ulonglong, ctypes.c_int, _VP],
-    "epoch_reduce": [_VP] * 15 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+    "epoch_reduce": [_VP] * 16 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
     + [ctypes.c_ulonglong] * 3 + [_VP],
     "incl_scan": [_VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong, ctypes.c_int, _VP],
     "registry_scan": [_VP] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_ulonglong] * 5

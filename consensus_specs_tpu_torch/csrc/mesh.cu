@@ -28,10 +28,21 @@
 // column, 1 B per mask or flag byte) and writes its masks once; K16
 // reads 16 B per entry and writes 8 B per lane; K17 reads 32 B per lane
 // and writes 8 B per candidate slot (and per fill slot with fill set).
-// Design: grid-stride, one lane per thread step, sums and maxima kept
-// in registers, reduced by warp shuffles and one atomicAdd / atomicMax
-// per block (unsigned 64-bit: exact; the host guards n x max < 2^63
-// before it reads a sum).  K17's
+// K15's design: one instantiation per mode, and the modes are the epoch
+// engine's five calls (K15_MODES: Altair rewards, phase0 rewards,
+// inactivity updates, slashings, effective balances; any other call is
+// cudaErrorInvalidValue), so sums and maxima are registers and no lane
+// tests a pointer; 4 lanes a thread step (two 16-byte loads per uint64 column,
+// 4-byte loads and stores per byte column), with lane-by-lane heads and
+// tails where a span starts or ends off a multiple of 4; as many blocks
+// as the card holds at once (occupancy x SMs), fewer where a group a
+// thread covers the span; one launch and no memset: each block folds
+// all its sums and maxima at once (warp shuffles, one barrier) into a
+// row of the wrapper's scratch, and the last block to take a ticket
+// (__threadfence, an atomic on a module counter it resets) folds every
+// row in one pass (unsigned 64-bit sums: exact in any order; the host
+// guards n x max < 2^63 before it reads a sum).  K16 and K17 are
+// grid-stride, reduced by warp shuffles and atomics per block.  K17's
 // compaction keeps index order: per-block family counts (first launch),
 // then each block sums the counts before it, scans its threads' counts
 // (three 21-bit fields in one 64-bit scan) and writes its candidates in
@@ -79,78 +90,283 @@ __device__ __forceinline__ void block_reduce(u64* v, int nv, u64 (*sm)[MESH_WARP
   __syncthreads();
 }
 
-static int span_blocks(long long n_local, int spans, long long lanes_per_block) {
-  long long b = (n_local + lanes_per_block - 1) / lanes_per_block;
-  long long cap = 2048 / (spans > 0 ? spans : 1);
-  if (b > cap) b = cap;
-  return b < 1 ? 1 : (int)b;
-}
-
 // ---------------------------------------------------------------------------
 // K15 epoch_reduce
 // ---------------------------------------------------------------------------
 
+// A mode is what a call asks for: max columns (0-3), sums (none, the
+// active balance alone, or it and NSUM flag sums or row sums) and which
+// byte masks it writes.  Each is its own instantiation, so every
+// accumulator is a register and no lane tests a pointer.
+enum { SUMS_NONE = 0, SUMS_ACTIVE = 1, SUMS_FLAGS = 2, SUMS_ROWS = 3 };
+#define MASK_ELIG 1
+#define MASK_ACTIVE 2
+#define MASK_TARGET 4
+#define REDUCE_MODE(nmax, kind, nsum, masks) ((nmax) | ((kind) << 2) | ((nsum) << 4) | ((masks) << 6))
+// The dispatch set: the epoch engine's calls (parallel/mesh_epoch.py
+// try_rewards_and_penalties on each fork, try_inactivity_updates,
+// try_slashings, try_effective_balance_updates).
+#define K15_MODES(X)                                                    \
+  X(3, SUMS_FLAGS, 3, MASK_ELIG | MASK_ACTIVE) /* Altair rewards */     \
+  X(2, SUMS_ROWS, 3, MASK_ELIG)                /* phase0 rewards */     \
+  X(1, SUMS_NONE, 0, MASK_ELIG | MASK_ACTIVE)  /* inactivity */         \
+  X(1, SUMS_ACTIVE, 0, MASK_TARGET)            /* slashings */          \
+  X(2, SUMS_NONE, 0, 0)                        /* effective balances */
+
+#define REDUCE_THREADS 512
+#define REDUCE_WARPS (REDUCE_THREADS / 32)
+#define REDUCE_ROW 7                   // u64 per block partial: 4 sums, 3 maxima
+#define REDUCE_MAX_BLOCKS 4096         // rows of the wrapper's scratch
+
 struct ReduceArgs {
   const uint64_t *eff, *act, *ext, *wd;
   const uint8_t *sl, *part, *rows;      // rows: (n_sum, spans * n_local) masks
-  const uint64_t* cols[3];              // max mode
+  const uint64_t* cols[3];              // max columns
   u64 *sums, *maxes;                    // (1 + n_sum,), (n_max, spans)
-  uint8_t *elig, *active, *target;      // optional byte columns
-  long long n_local;
-  int spans, n_sum, flags, n_max;       // flags: sums from part's bits, else rows
+  uint8_t *elig, *active, *target;      // byte masks
+  u64* scratch;                         // (blocks, REDUCE_ROW) partials
+  long long n_local, n_total;
+  int spans, vec;                       // vec: every column aligned for 4-lane loads
   uint64_t prev, cur, tgt;
 };
 
-__global__ void __launch_bounds__(MESH_THREADS) k_epoch_reduce(ReduceArgs a) {
-  __shared__ u64 sm[4][MESH_WARPS];
-  const int s = blockIdx.y;
-  const long long base = (long long)s * a.n_local, n_total = a.n_local * a.spans;
-  u64 acc[4] = {0, 0, 0, 0}, mx[3] = {0, 0, 0};
-  for (long long li = (long long)blockIdx.x * MESH_THREADS + threadIdx.x; li < a.n_local;
-       li += (long long)gridDim.x * MESH_THREADS) {
-    const long long i = base + li;
-    bool active_prev = false, slashed = false;
-    if (a.act) {
-      const uint64_t act = a.act[i], ext = a.ext[i];
-      active_prev = act <= a.prev && a.prev < ext;
-      if (a.sums && act <= a.cur && a.cur < ext) acc[0] += a.eff[i];
+// the last block of a launch to finish folds every block's partial; it
+// resets the ticket for the next launch (launches on one stream run in turn)
+__device__ unsigned int k15_ticket = 0;
+
+template <int NMAX, int KIND, int NSUM, int MASKS>
+struct K15 {
+  static constexpr bool SUMS = KIND != SUMS_NONE;
+  static constexpr int NACC = SUMS ? 1 + NSUM : 0;
+  static constexpr bool ACT = SUMS || MASKS != 0;                  // act, ext
+  static constexpr bool SL = KIND == SUMS_FLAGS || MASKS != 0;
+  static constexpr bool WD = (MASKS & (MASK_ELIG | MASK_TARGET)) != 0;
+  static constexpr bool PART = KIND == SUMS_FLAGS && NSUM > 0;
+  static constexpr bool ROWS = KIND == SUMS_ROWS && NSUM > 0;
+
+  // one lane: its sums and maxima into acc and mx, its masks as bytes
+  __device__ static __forceinline__ void lane(const ReduceArgs& a, u64 eff, u64 act, u64 ext,
+                                              u64 wd, unsigned sl, unsigned part,
+                                              const unsigned* row, const u64* col, u64* acc,
+                                              u64* mx, unsigned* masks) {
+    const bool active_prev = ACT && act <= a.prev && a.prev < ext;
+    if (SUMS && act <= a.cur && a.cur < ext) acc[0] += eff;
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j) {
+      const bool on = KIND == SUMS_FLAGS ? active_prev && !sl && ((part >> j) & 1u) : row[j] != 0;
+      if (on) acc[1 + j] += eff;
     }
-    if (a.sl) slashed = a.sl[i] != 0;
-    if (a.sums) {
-      for (int j = 0; j < a.n_sum; ++j) {
-        const bool on = a.flags ? active_prev && !slashed && ((a.part[i] >> j) & 1)
-                                : a.rows[(long long)j * n_total + i] != 0;
-        if (on) acc[1 + j] += a.eff[i];
+#pragma unroll
+    for (int c = 0; c < NMAX; ++c) mx[c] = col[c] > mx[c] ? col[c] : mx[c];
+    masks[0] = active_prev || (sl && a.prev + 1 < wd);
+    masks[1] = active_prev && !sl;
+    masks[2] = sl && wd == a.tgt;
+  }
+
+  __device__ static __forceinline__ void scalar(const ReduceArgs& a, long long i, u64* acc,
+                                                u64* mx) {
+    unsigned row[NSUM > 0 ? NSUM : 1], masks[3];
+    u64 col[NMAX > 0 ? NMAX : 1];
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j) row[j] = ROWS ? a.rows[(long long)j * a.n_total + i] : 0u;
+#pragma unroll
+    for (int c = 0; c < NMAX; ++c) col[c] = a.cols[c][i];
+    lane(a, SUMS ? a.eff[i] : 0, ACT ? a.act[i] : 0, ACT ? a.ext[i] : 0, WD ? a.wd[i] : 0,
+         SL ? a.sl[i] : 0u, PART ? a.part[i] : 0u, row, col, acc, mx, masks);
+    if (MASKS & MASK_ELIG) a.elig[i] = (uint8_t)masks[0];
+    if (MASKS & MASK_ACTIVE) a.active[i] = (uint8_t)masks[1];
+    if (MASKS & MASK_TARGET) a.target[i] = (uint8_t)masks[2];
+  }
+
+  // lanes i .. i + 3, i a multiple of 4: two 16-byte loads per uint64
+  // column, one 4-byte load per byte column, one 4-byte store per mask
+  __device__ static __forceinline__ void load4(const uint64_t* p, long long i, u64* v) {
+    const ulonglong2 x = *(const ulonglong2*)(p + i), y = *(const ulonglong2*)(p + i + 2);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = y.x;
+    v[3] = y.y;
+  }
+
+  __device__ static __forceinline__ void vec4(const ReduceArgs& a, long long i, u64* acc,
+                                              u64* mx) {
+    u64 eff[4] = {0, 0, 0, 0}, act[4] = {0, 0, 0, 0}, ext[4] = {0, 0, 0, 0},
+        wd[4] = {0, 0, 0, 0}, col[NMAX > 0 ? NMAX : 1][4];
+    unsigned sl = 0, part = 0, row[NSUM > 0 ? NSUM : 1], out[3] = {0, 0, 0};
+    if (SUMS) load4(a.eff, i, eff);
+    if (ACT) {
+      load4(a.act, i, act);
+      load4(a.ext, i, ext);
+    }
+    if (WD) load4(a.wd, i, wd);
+#pragma unroll
+    for (int c = 0; c < NMAX; ++c) load4(a.cols[c], i, col[c]);
+    if (SL) sl = *(const unsigned*)(a.sl + i);
+    if (PART) part = *(const unsigned*)(a.part + i);
+#pragma unroll
+    for (int j = 0; j < NSUM; ++j)
+      row[j] = ROWS ? *(const unsigned*)(a.rows + (long long)j * a.n_total + i) : 0u;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      unsigned r[NSUM > 0 ? NSUM : 1], m[3];
+      u64 c[NMAX > 0 ? NMAX : 1];
+#pragma unroll
+      for (int j = 0; j < NSUM; ++j) r[j] = (row[j] >> (8 * l)) & 0xFFu;
+#pragma unroll
+      for (int k = 0; k < NMAX; ++k) c[k] = col[k][l];
+      lane(a, eff[l], act[l], ext[l], wd[l], (sl >> (8 * l)) & 0xFFu, (part >> (8 * l)) & 0xFFu,
+           r, c, acc, mx, m);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) out[k] |= m[k] << (8 * l);
+    }
+    if (MASKS & MASK_ELIG) *(unsigned*)(a.elig + i) = out[0];
+    if (MASKS & MASK_ACTIVE) *(unsigned*)(a.active + i) = out[1];
+    if (MASKS & MASK_TARGET) *(unsigned*)(a.target + i) = out[2];
+  }
+};
+
+// v[0..NACC) summed and v[NACC..NACC + NMAX) maxed over the block in one
+// barrier: each warp reduces every value, then thread j folds value j
+// across the warps into out[j] (j < NACC + NMAX; the others return 0)
+template <int NACC, int NMAX>
+__device__ __forceinline__ u64 fold_block(const u64* v, u64 (*sm)[REDUCE_WARPS]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NACC + NMAX; ++j) {
+    const u64 r = j < NACC ? warp_sum(v[j]) : warp_max(v[j]);
+    if (lane == 0) sm[j][warp] = r;
+  }
+  __syncthreads();
+  u64 out = 0;
+  const int j = threadIdx.x;
+  if (j < NACC + NMAX) {
+    out = sm[j][0];
+    for (int w = 1; w < REDUCE_WARPS; ++w) {
+      const u64 x = sm[j][w];
+      out = j < NACC ? out + x : (x > out ? x : out);
+    }
+  }
+  __syncthreads();
+  return out;
+}
+
+// grid (blocks per span, spans): block (b, s) takes a share of span s;
+// the vector range [v_lo, v_hi) holds 4-lane groups, the rest (at most 3
+// lanes at each end, or the whole span without vec) goes lane by lane
+template <int NMAX, int KIND, int NSUM, int MASKS>
+__global__ void __launch_bounds__(REDUCE_THREADS) k_epoch_reduce(ReduceArgs a) {
+  typedef K15<NMAX, KIND, NSUM, MASKS> M;
+  constexpr int NACC = M::NACC, NV = NACC + NMAX;
+  __shared__ u64 sm[NV > 0 ? NV : 1][REDUCE_WARPS];
+  __shared__ bool last;
+  u64 v[NV > 0 ? NV : 1];              // NACC sums, then NMAX maxima
+#pragma unroll
+  for (int k = 0; k < NV; ++k) v[k] = 0;
+  const int s = blockIdx.y;
+  const long long lo = (long long)s * a.n_local, hi = lo + a.n_local;
+  long long v_lo = hi, v_hi = hi;
+  if (a.vec) {
+    v_lo = (lo + 3) & ~3LL;
+    v_lo = v_lo < hi ? v_lo : hi;
+    v_hi = hi & ~3LL;
+    v_hi = v_hi > v_lo ? v_hi : v_lo;
+  }
+  const long long t = (long long)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  const long long step = (long long)gridDim.x * REDUCE_THREADS;
+  for (long long i = v_lo + 4 * t; i < v_hi; i += 4 * step) M::vec4(a, i, v, v + NACC);
+  const long long head = v_lo - lo, n_scalar = head + (hi - v_hi);
+  for (long long q = t; q < n_scalar; q += step)
+    M::scalar(a, q < head ? lo + q : v_hi + (q - head), v, v + NACC);
+  if (NV == 0) return;
+  // this block's partial (row: NACC sums at 0.., NMAX maxima at 4..), then
+  // the ticket; every writer fences its own store before the barrier
+  const long long row = (long long)s * gridDim.x + blockIdx.x;
+  const int j = threadIdx.x;
+  u64 r = fold_block<NACC, NMAX>(v, sm);
+  if (j < NV) {
+    a.scratch[row * REDUCE_ROW + (j < NACC ? j : 4 + j - NACC)] = r;
+    __threadfence();
+  }
+  __syncthreads();
+  if (j == 0) last = atomicAdd(&k15_ticket, 1u) == gridDim.x * gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: every row once, its sums over all spans, its maxima
+  // per span
+  u64 tot = 0;
+  for (int sp = 0; sp < a.spans; ++sp) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = 0;
+    for (long long b = threadIdx.x; b < gridDim.x; b += REDUCE_THREADS) {
+      const u64* p = a.scratch + ((long long)sp * gridDim.x + b) * REDUCE_ROW;
+#pragma unroll
+      for (int k = 0; k < NACC; ++k) v[k] += __ldcg(p + k);
+#pragma unroll
+      for (int c = 0; c < NMAX; ++c) {
+        const u64 x = __ldcg(p + 4 + c);
+        v[NACC + c] = x > v[NACC + c] ? x : v[NACC + c];
       }
     }
-    for (int c = 0; c < a.n_max; ++c) {
-      const uint64_t v = a.cols[c][i];
-      if (v > mx[c]) mx[c] = v;
+    r = fold_block<NACC, NMAX>(v, sm);
+    if (j < NACC) {
+      tot += r;
+    } else if (j < NV) {
+      a.maxes[(j - NACC) * a.spans + sp] = r;
     }
-    if (a.elig) a.elig[i] = active_prev || (slashed && a.prev + 1 < a.wd[i]);
-    if (a.active) a.active[i] = active_prev && !slashed;
-    if (a.target) a.target[i] = slashed && a.wd[i] == a.tgt;
   }
-  if (a.sums) {
-    block_reduce<false>(acc, 1 + a.n_sum, sm);
-    if (threadIdx.x == 0)
-      for (int j = 0; j <= a.n_sum; ++j) atomicAdd(&a.sums[j], acc[j]);
+  if (j < NACC) a.sums[j] = tot;
+  if (j == 0) k15_ticket = 0;
+}
+
+template <int NMAX, int KIND, int NSUM, int MASKS>
+static int launch_reduce(ReduceArgs& a, long long scratch_words, cudaStream_t st) {
+  typedef K15<NMAX, KIND, NSUM, MASKS> M;
+  if ((M::SUMS && (!a.eff || !a.sums)) || (M::ACT && (!a.act || !a.ext)) || (M::SL && !a.sl) ||
+      (M::WD && !a.wd) || (M::PART && !a.part) || (M::ROWS && !a.rows) || (NMAX && !a.maxes))
+    return cudaErrorInvalidValue;
+  for (int c = 0; c < NMAX; ++c)
+    if (!a.cols[c]) return cudaErrorInvalidValue;
+  // 4-lane groups need 16-byte uint64 columns and 4-byte byte columns
+  bool vec = true;
+  const void* wide[] = {a.eff, a.act, a.ext, a.wd, a.cols[0], a.cols[1], a.cols[2]};
+  for (const void* p : wide) vec = vec && ((uintptr_t)p & 15) == 0;
+  const void* narrow[] = {a.sl, a.part, a.elig, a.active, a.target};
+  for (const void* p : narrow) vec = vec && ((uintptr_t)p & 3) == 0;
+  for (int j = 0; M::ROWS && j < NSUM; ++j) vec = vec && ((uintptr_t)(a.rows + j * a.n_total) & 3) == 0;
+  a.vec = vec;
+  // as many blocks as are resident at once, fewer where a 4-lane group a
+  // thread covers the span
+  static int per_sm = 0, sms = 0;
+  if (!per_sm) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_epoch_reduce<NMAX, KIND, NSUM, MASKS>,
+                                                  REDUCE_THREADS, 0);
+    if (per_sm < 1) per_sm = 1;
   }
-  if (a.n_max) {
-    block_reduce<true>(mx, a.n_max, sm);
-    if (threadIdx.x == 0)
-      for (int c = 0; c < a.n_max; ++c) atomicMax(&a.maxes[c * a.spans + s], mx[c]);
-  }
+  long long per_span = ((a.n_local + 3) / 4 + REDUCE_THREADS - 1) / REDUCE_THREADS;
+  long long cap = (long long)per_sm * sms / a.spans;
+  if (cap > REDUCE_MAX_BLOCKS / a.spans) cap = REDUCE_MAX_BLOCKS / a.spans;
+  if (per_span > cap) per_span = cap;
+  if (per_span < 1) per_span = 1;
+  if (per_span * a.spans * REDUCE_ROW > scratch_words) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)per_span, a.spans);
+  k_epoch_reduce<NMAX, KIND, NSUM, MASKS><<<grid, REDUCE_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int epoch_reduce(const void* eff, const void* act, const void* ext, const void* wd,
                             const void* sl, const void* part, const void* rows, const void* c0,
                             const void* c1, const void* c2, void* sums, void* maxes, void* elig,
-                            void* active, void* target, long long n_local, int spans, int n_sum,
-                            int flags, int n_max, unsigned long long prev,
-                            unsigned long long cur, unsigned long long tgt, void* stream) {
-  if (spans < 1 || n_sum < 0 || n_sum > 3 || n_max < 0 || n_max > 3) return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+                            void* active, void* target, void* scratch, long long scratch_words,
+                            long long n_local, int spans, int n_sum, int flags, int n_max,
+                            unsigned long long prev, unsigned long long cur,
+                            unsigned long long tgt, void* stream) {
+  if (spans < 1 || spans > REDUCE_MAX_BLOCKS || n_local < 0 || n_sum < 0 || n_sum > 3 ||
+      n_max < 0 || n_max > 3 || !scratch)
+    return cudaErrorInvalidValue;
   ReduceArgs a;
   a.eff = (const uint64_t*)eff; a.act = (const uint64_t*)act; a.ext = (const uint64_t*)ext;
   a.wd = (const uint64_t*)wd; a.sl = (const uint8_t*)sl; a.part = (const uint8_t*)part;
@@ -158,15 +374,18 @@ extern "C" int epoch_reduce(const void* eff, const void* act, const void* ext, c
   a.cols[0] = (const uint64_t*)c0; a.cols[1] = (const uint64_t*)c1; a.cols[2] = (const uint64_t*)c2;
   a.sums = (u64*)sums; a.maxes = (u64*)maxes;
   a.elig = (uint8_t*)elig; a.active = (uint8_t*)active; a.target = (uint8_t*)target;
-  a.n_local = n_local; a.spans = spans; a.n_sum = n_sum; a.flags = flags; a.n_max = n_max;
+  a.scratch = (u64*)scratch;
+  a.n_local = n_local; a.n_total = n_local * spans; a.spans = spans; a.vec = 0;
   a.prev = prev; a.cur = cur; a.tgt = tgt;
-  if (sums) cudaMemsetAsync(sums, 0, sizeof(u64) * (1 + n_sum), st);
-  if (maxes && n_max) cudaMemsetAsync(maxes, 0, sizeof(u64) * n_max * spans, st);
-  if (n_local > 0) {
-    dim3 grid(span_blocks(n_local, spans, MESH_THREADS), spans);
-    k_epoch_reduce<<<grid, MESH_THREADS, 0, st>>>(a);
-  }
-  return (int)cudaGetLastError();
+  const int kind = !sums ? SUMS_NONE : n_sum == 0 ? SUMS_ACTIVE : flags ? SUMS_FLAGS : SUMS_ROWS;
+  const int masks = (elig ? MASK_ELIG : 0) | (active ? MASK_ACTIVE : 0) | (target ? MASK_TARGET : 0);
+  const int mode = REDUCE_MODE(n_max, kind, kind >= SUMS_FLAGS ? n_sum : 0, masks);
+  cudaStream_t st = (cudaStream_t)stream;
+#define K15_CASE(nmax, k, nsum, m) \
+  if (mode == REDUCE_MODE(nmax, k, nsum, m)) return launch_reduce<nmax, k, nsum, m>(a, scratch_words, st);
+  K15_MODES(K15_CASE)
+#undef K15_CASE
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

@@ -6,24 +6,83 @@
 // :306 g1_normalize) together with the host digit planes of :55
 // _digits_msb_bits, which K8 reads straight from the scalar words.
 //
-// The MSM is digit-parallel, as in the JAX package: with the window
-// multiples W[w][i] = [2^(8w)] P_i, sum_i [k_i] P_i = sum_{w,i}
-// [d_{w,i}] W[w][i] for the 32 bytes d_{w,i} of k_i.  Bound: integer
-// multiply-adds (Fq products at 588 each: a doubling 9, an addition 14),
-// not bytes: a window entry is 144 B against ~100 Fq products of work.
-// Design: K7 gives each point one thread that doubles it 8 times per
-// window and writes the 32 projective multiples window-major,
-// (32, N, 3, 12) words.  K8 gives each (window, point) lane one thread
-// for its 8-step double-and-add, sums each block's lanes in a
-// shared-memory tree into a partial, and a second, one-block launch sums
-// the partials and normalizes, as K2 does.  No buckets: simple first.
+// With the window multiples W[w][i] = [2^(8w)] P_i, sum_i [k_i] P_i =
+// sum_{w,i} [d_{w,i}] W[w][i] for the 32 bytes d_{w,i} of k_i.  Bound:
+// integer multiply-adds (Fq products at 588 each: a doubling 9, an
+// addition 14), not bytes: a window entry is 144 B against 14 products.
+//
+// K7 gives each point one thread that doubles it 8 times per window and
+// writes the 32 projective multiples window-major, (32, N, 3, 12) words.
+//
+// K8 is Pippenger's bucket method over that table.  Every (window, point)
+// lane shares one set of 255 buckets (the table already carries the
+// window's weight), and the result is sum_{d=1}^{255} d B_d with no
+// per-window combination.  Stages, all on the wrapper's stream, with no
+// synchronization and no allocation (the wrapper passes one scratch
+// buffer sized from N, ops/msm.py msm_plan):
+//   1. k_msm_hist: each block's histogram of the digits of its 1,024
+//      lanes in shared memory, warp-aggregated (__match_any_sync, so a
+//      warp whose lanes share one digit makes one atomic), written per
+//      block; digit 0 and infinite window points are skipped;
+//   2. k_msm_scan (one block): each digit's count and start, every
+//      block's offset per digit, and the chunk schedule below;
+//   3. k_msm_scatter: each live lane's index into bucket order (int32,
+//      4 x 32 N bytes); order inside a bucket is free, since the sum is
+//      a group element and the output is normalized to affine;
+//   4. L level launches: level 0 (k_msm_level0) cuts every bucket's run
+//      of lanes into chunks of FIRST_CHUNK window points, one thread
+//      summing each chunk into one partial; each later level
+//      (k_msm_level) cuts every bucket's run of partials into chunks of
+//      CHUNK.  Chunks never cross a bucket, so each chunk's output lands
+//      in its bucket's next run, at offsets the scan computed from the
+//      counts alone (m -> ceil(m / chunk)).  No chunk adds more than
+//      FIRST_CHUNK points whatever the digits: a bucket holding every
+//      lane (every scalar one repeated byte) takes log2 levels, not one
+//      thread's serial sum.  L = 1 + ceil(log2(ceil(32 N / FIRST_CHUNK)))
+//      levels reduce the largest possible run to one point, B_d;
+//   5. the combine, sum_d d B_d as sum_b 2^b G_b, G_b the sum of the
+//      buckets whose digit has bit b set: k_msm_gather puts the B_d in
+//      256 slots, 8 launches of k_msm_zeta run an in-place superset-sum
+//      transform over the 8 digit bits (128 additions a round, spread
+//      over 26 one-warp blocks) and leave G_b at slot 2^b, k_msm_weigh
+//      doubles G_b b times and adds the eight;
+//   6. k_msm_normalize: one thread makes the sum affine with one binary
+//      extended-Euclid inversion (fq_inv.cuh).
+// Level 0 is bound by the card's product rate; the later levels and the
+// combine run few point operations at once, so their time is the chain
+// of each: a complete addition in one thread is 14 dependent products.
+// There every point operation is made by a team of 6 threads (team_add,
+// team_dbl), a chain of 2 products.
+// CUDA launches per call: L + 14 (30 at N = 4096 and at N = 4032, 21 at
+// N = 6).  With marks (an array of MSM_MARKS events, or null) the entry
+// records an event before stage 1 and after stages 1, 2, 3, level 0, the
+// other levels, 5 and 6, for per-stage times.
 #include <cuda_runtime.h>
 #include "points.cuh"
+#include "fq_inv.cuh"
 
 #define N_WINDOWS 32
 #define WINDOW_BITS 8
 #define K7_THREADS 64
-#define K8_THREADS 128
+#define N_BUCKETS 256          // digit values; bucket 0 stays empty
+#define DIGIT_BITS 8
+#define HIST_THREADS 256       // == N_BUCKETS: one thread per digit in a block
+#define HIST_LANES 4           // lanes per thread in stages 1 and 3
+#define TEAM 6                 // threads per point operation
+#define TEAMS_PER_WARP 5
+#define LEVEL_WARPS 4
+#define LEVEL_THREADS (32 * LEVEL_WARPS)
+#define LEVEL_TEAMS (TEAMS_PER_WARP * LEVEL_WARPS)
+#define LEVEL0_THREADS 128
+#define ZETA_TEAMS (N_BUCKETS / 2)      // one per addition of a superset-sum round
+#define ZETA_BLOCKS ((ZETA_TEAMS + TEAMS_PER_WARP - 1) / TEAMS_PER_WARP)   // one warp each
+#define FIRST_CHUNK 4          // window points per chunk at level 0
+#define CHUNK 2                // partials per chunk at later levels
+#define PT_WORDS (3 * NW)
+#define MAX_LEVELS 40
+#define MSM_MARKS 8
+
+static_assert(HIST_THREADS == N_BUCKETS, "one histogram slot per thread");
 
 __global__ void __launch_bounds__(K7_THREADS)
 k_expand_windows(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ inf,
@@ -44,57 +103,415 @@ k_expand_windows(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ i
   }
 }
 
-// lane = w * n + i: [d] W[w][i] with d byte w of scalar i, MSB first from
-// the digit's top set bit; each block's sum goes to partial[blockIdx.x]
-__global__ void __launch_bounds__(K8_THREADS)
-k_msm_lanes(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ scalars,
-            uint32_t* __restrict__ partial, int n) {
-  __shared__ Pt<Fq> sh[K8_THREADS];
-  const long long lane = (long long)blockIdx.x * K8_THREADS + threadIdx.x;
-  Pt<Fq> acc;
-  pt_identity(acc);
-  if (lane < (long long)N_WINDOWS * n) {
-    const int w = (int)(lane / n), i = (int)(lane % n);
-    const uint32_t d = (scalars[(size_t)i * 8 + w / 4] >> (8 * (w % 4))) & 0xFFu;
-    if (d) {
-      Pt<Fq> base;
-      g1_load_proj(base, windows + (size_t)lane * 3 * NW);
-      int b = WINDOW_BITS - 1;
-      while (!((d >> b) & 1u)) b--;
-      acc = base;
-      for (b--; b >= 0; b--) {
-        pt_dbl(acc, acc);
-        if ((d >> b) & 1u) pt_add(acc, acc, base);
-      }
-    }
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+
+// Scratch layout in 32-bit words, the same arithmetic as ops/msm.py
+// msm_plan: per-block histograms (then offsets), the level schedule
+// ((levels + 1) x 257 offsets, the last entry of a row its total), the
+// sorted lane indices, two partial buffers of 36 words per point, the
+// 256 buckets of the combine, the projective sum.
+struct MsmPlan {
+  int lanes, hist_blocks, levels;
+  long long bound[MAX_LEVELS + 1];     // upper bound of each level's run total
+  long long hist, sched, sorted, part_a, part_b, buckets, sum, words;
+};
+
+static int msm_plan(int n, MsmPlan& p) {
+  if (n < 1 || n > (1 << 25) / N_WINDOWS) return 0;
+  p.lanes = N_WINDOWS * n;
+  p.hist_blocks = (p.lanes + HIST_THREADS * HIST_LANES - 1) / (HIST_THREADS * HIST_LANES);
+  long long m = (p.lanes + FIRST_CHUNK - 1) / FIRST_CHUNK;
+  p.levels = 1;
+  while (m > 1) {
+    m = (m + CHUNK - 1) / CHUNK;
+    p.levels++;
   }
-  sh[threadIdx.x] = acc;
-  __syncthreads();
-  block_tree_sum<Fq, K8_THREADS>(sh);
-  if (threadIdx.x == 0) g1_store_proj(partial + (size_t)blockIdx.x * 3 * NW, sh[0]);
+  if (p.levels > MAX_LEVELS) return 0;
+  // sum_d ceil(m_d / c) <= floor(M / c) + 255 over at most 255 filled buckets
+  long long b = p.lanes, most = 1;
+  p.bound[0] = b;
+  for (int k = 0; k < p.levels; k++) {
+    const long long c = k ? CHUNK : FIRST_CHUNK;
+    const long long nb = b / c + (N_BUCKETS - 1);
+    b = nb < b ? nb : b;
+    p.bound[k + 1] = b;
+    if (b > most) most = b;
+  }
+  p.hist = 0;
+  p.sched = p.hist + (long long)p.hist_blocks * N_BUCKETS;
+  p.sorted = p.sched + (long long)(p.levels + 1) * (N_BUCKETS + 1);
+  p.part_a = (p.sorted + p.lanes + 3) / 4 * 4;      // 16-byte aligned points
+  p.part_b = p.part_a + most * PT_WORDS;
+  p.buckets = p.part_b + most * PT_WORDS;
+  p.sum = p.buckets + N_BUCKETS * PT_WORDS;
+  p.words = p.sum + PT_WORDS;
+  return 1;
 }
 
-__global__ void __launch_bounds__(K8_THREADS)
-k_msm_sum_normalize(const uint32_t* __restrict__ partial, int n_partial,
-                    uint32_t* __restrict__ out, uint8_t* __restrict__ out_inf) {
-  __shared__ Pt<Fq> sh[K8_THREADS];
-  Pt<Fq> acc, q;
-  pt_identity(acc);
-  for (int j = threadIdx.x; j < n_partial; j += K8_THREADS) {
-    g1_load_proj(q, partial + (size_t)j * 3 * NW);
-    pt_add(acc, acc, q);
+// ---------------------------------------------------------------- teams
+// A point operation by a team of TEAM threads of one warp (k: the
+// thread's place in its team, mask: the team's lanes): the formulas of
+// points.cuh (RCB Algorithms 7 and 9) with their general products in two
+// waves, one product a thread, and their products by b3 = 12 as four
+// additions.  Every value is the canonical one pt_add / pt_dbl compute.
+// One thread's complete addition is 14 dependent CIOS products; a team's
+// is 2.  p, q, r: points anywhere (r may alias p or q); slot: TEAM Fq of
+// shared memory.
+
+DEV void fq_times12(Fq& r, const Fq& a) {
+  Fq t;
+  fq_add(t, a, a);
+  fq_add(t, t, a);
+  fq_add(t, t, t);
+  fq_add(r, t, t);
+}
+
+DEV const Fq& coord(const Pt<Fq>* p, int i) { return i == 0 ? p->x : i == 1 ? p->y : p->z; }
+
+// wave 2 operands of the addition from wave 1's products t0, t1, t2 and
+// m1 = (x1 + y1)(x2 + y2), m2 = (y1 + z1)(y2 + z2), m3 = (x1 + z1)(x2 + z2):
+// 0 t3 = m1 - t0 - t1, 1 t4 = m2 - t1 - t2, 2 y3 = 12 (m3 - t0 - t2),
+// 3 x3 = 3 t0, 4 z3 = t1 + 12 t2, 5 u = t1 - 12 t2
+DEV void add_operand(Fq& r, const Fq* slot, int id) {
+  Fq t;
+  switch (id) {
+    case 0:
+      fq_sub(r, slot[3], slot[0]);
+      fq_sub(r, r, slot[1]);
+      break;
+    case 1:
+      fq_sub(r, slot[4], slot[1]);
+      fq_sub(r, r, slot[2]);
+      break;
+    case 2:
+      fq_sub(t, slot[5], slot[0]);
+      fq_sub(t, t, slot[2]);
+      fq_times12(r, t);
+      break;
+    case 3:
+      fq_add(t, slot[0], slot[0]);
+      fq_add(r, t, slot[0]);
+      break;
+    case 4:
+      fq_times12(t, slot[2]);
+      fq_add(r, slot[1], t);
+      break;
+    default:
+      fq_times12(t, slot[2]);
+      fq_sub(r, slot[1], t);
   }
-  sh[threadIdx.x] = acc;
+}
+
+__device__ void team_add(Pt<Fq>* r, const Pt<Fq>* p, const Pt<Fq>* q, Fq* slot, int k,
+                         unsigned mask) {
+  Fq a, b;
+  if (k < 3) {
+    fq_set(a, coord(p, k));
+    fq_set(b, coord(q, k));
+  } else {
+    const int i = k == 4 ? 1 : 0, j = k == 3 ? 1 : 2;
+    fq_add(a, coord(p, i), coord(p, j));
+    fq_add(b, coord(q, i), coord(q, j));
+  }
+  fq_mul(slot[k], a, b);
+  __syncwarp(mask);
+  // p1 = t3 u, p2 = t4 y3, p3 = u z3, p4 = y3 x3, p5 = z3 t4, p6 = x3 t3
+  add_operand(a, slot, k == 0 ? 0 : k == 1 ? 1 : k == 2 ? 5 : k == 3 ? 2 : k == 4 ? 4 : 3);
+  add_operand(b, slot, k == 0 ? 5 : k == 1 ? 2 : k == 2 ? 4 : k == 3 ? 3 : k == 4 ? 1 : 0);
+  __syncwarp(mask);
+  fq_mul(slot[k], a, b);
+  __syncwarp(mask);
+  if (k == 0) fq_sub(r->x, slot[0], slot[1]);
+  if (k == 1) fq_add(r->y, slot[2], slot[3]);
+  if (k == 2) fq_add(r->z, slot[4], slot[5]);
+  __syncwarp(mask);
+}
+
+// wave 1: t0 = y^2, t1 = y z, xy = x y, zz = z^2; with t2 = 12 zz,
+// wave 2: m1 = t2 z3, m2 = t1 z3, m3 = w y3, m4 = w xy for z3 = 8 t0,
+// y3 = t0 + t2, w = t0 - 3 t2; r = (2 m4, m1 + m3, m2)
+__device__ void team_dbl(Pt<Fq>* r, const Pt<Fq>* p, Fq* slot, int k, unsigned mask) {
+  Fq a, b;
+  if (k < 4) {
+    fq_set(a, k == 2 ? p->x : k == 3 ? p->z : p->y);
+    fq_set(b, k == 0 ? p->y : k == 1 || k == 3 ? p->z : p->y);
+    fq_mul(slot[k], a, b);
+  }
+  __syncwarp(mask);
+  if (k < 4) {
+    Fq t2, t;
+    fq_times12(t2, slot[3]);
+    if (k < 2) {
+      fq_add(b, slot[0], slot[0]);
+      fq_add(b, b, b);
+      fq_add(b, b, b);                 // z3
+      fq_set(a, k == 0 ? t2 : slot[1]);
+    } else {
+      fq_add(t, t2, t2);
+      fq_add(t, t, t2);
+      fq_sub(a, slot[0], t);           // w
+      if (k == 2) fq_add(b, slot[0], t2); else fq_set(b, slot[2]);
+    }
+  }
+  __syncwarp(mask);
+  if (k < 4) fq_mul(slot[k], a, b);
+  __syncwarp(mask);
+  if (k == 0) fq_add(r->x, slot[3], slot[3]);
+  if (k == 1) fq_add(r->y, slot[0], slot[2]);
+  if (k == 2) fq_set(r->z, slot[1]);
+  __syncwarp(mask);
+}
+
+// this thread's team within its warp: place k, lanes mask, team index in
+// the block (-1 for the two lanes left over in each warp)
+DEV int team_of(int& k, unsigned& mask) {
+  const int lane = threadIdx.x & 31, tw = lane / TEAM;
+  k = lane - tw * TEAM;
+  mask = ((1u << TEAM) - 1u) << (tw * TEAM);
+  return tw < TEAMS_PER_WARP ? (int)(threadIdx.x >> 5) * TEAMS_PER_WARP + tw : -1;
+}
+
+DEV void copy_coord(Pt<Fq>* r, const Pt<Fq>* p, int k) {
+  if (k < 3) fq_set(k == 0 ? r->x : k == 1 ? r->y : r->z, coord(p, k));
+}
+
+// the bucket d of output j of a level: off[d] <= j < off[d + 1], for
+// 0 <= j < off[N_BUCKETS] (empty buckets have equal offsets)
+DEV int bucket_of(const int* off, int j) {
+  int lo = 0, hi = N_BUCKETS;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= j) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// ---------------------------------------------------------------- stages
+
+// lane = w * n + i: the digit (byte w of scalar i) if the lane is live (a
+// non-zero digit on a finite window point), else 0
+__device__ __forceinline__ int lane_digit(const uint32_t* __restrict__ windows,
+                                          const uint32_t* __restrict__ scalars, int n, int lane) {
+  const int w = lane / n, i = lane - w * n;
+  const uint32_t d = (scalars[(size_t)i * 8 + (w >> 2)] >> (8 * (w & 3))) & 0xFFu;
+  if (!d) return 0;
+  const uint4* z = (const uint4*)(windows + (size_t)lane * PT_WORDS + 2 * NW);
+  const uint4 a = z[0], b = z[1], c = z[2];
+  const uint32_t any = a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w | c.x | c.y | c.z | c.w;
+  return any ? (int)d : 0;
+}
+
+__global__ void __launch_bounds__(HIST_THREADS)
+k_msm_hist(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ scalars,
+           int* __restrict__ bhist, int n) {
+  __shared__ int hist[N_BUCKETS];
+  hist[threadIdx.x] = 0;
   __syncthreads();
-  block_tree_sum<Fq, K8_THREADS>(sh);
-  if (threadIdx.x == 0) {
-    Fq x, y;
-    bool inf;
-    pt_normalize(x, y, inf, sh[0]);
-    fq_store(out, x);
-    fq_store(out + NW, y);
-    out_inf[0] = inf ? 1 : 0;
+  const int lanes = N_WINDOWS * n, me = threadIdx.x & 31;
+  const int base = blockIdx.x * HIST_THREADS * HIST_LANES;
+  for (int k = 0; k < HIST_LANES; k++) {
+    const int lane = base + k * HIST_THREADS + threadIdx.x;
+    const int d = lane < lanes ? lane_digit(windows, scalars, n, lane) : 0;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    if (d && me == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
   }
+  __syncthreads();
+  bhist[(size_t)blockIdx.x * N_BUCKETS + threadIdx.x] = hist[threadIdx.x];
+}
+
+// exclusive prefix of v over the block's N_BUCKETS threads; *total: the sum
+__device__ int bucket_scan(int v, int* total) {
+  __shared__ int warp_sum[N_BUCKETS / 32 + 1];
+  const int me = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, x, o);
+    if (me >= o) x += u;
+  }
+  if (me == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int w = 0; w < N_BUCKETS / 32; w++) {
+      const int s = warp_sum[w];
+      warp_sum[w] = run;
+      run += s;
+    }
+    warp_sum[N_BUCKETS / 32] = run;
+  }
+  __syncthreads();
+  const int excl = x - v + warp_sum[warp];
+  *total = warp_sum[N_BUCKETS / 32];
+  __syncthreads();
+  return excl;
+}
+
+// one block, thread d = digit d: counts, per-block offsets (in place of
+// the histograms) and the level schedule sched[k][0..256]
+__global__ void __launch_bounds__(N_BUCKETS)
+k_msm_scan(int* __restrict__ bhist, int* __restrict__ sched, int hist_blocks, int levels) {
+  const int d = threadIdx.x;
+  int count = 0;
+  for (int b = 0; b < hist_blocks; b++) count += bhist[(size_t)b * N_BUCKETS + d];
+  int total;
+  int run = bucket_scan(count, &total);
+  for (int b = 0; b < hist_blocks; b++) {
+    const int c = bhist[(size_t)b * N_BUCKETS + d];
+    bhist[(size_t)b * N_BUCKETS + d] = run;
+    run += c;
+  }
+  int m = count;
+  for (int k = 0; k <= levels; k++) {
+    const int off = bucket_scan(m, &total);
+    sched[k * (N_BUCKETS + 1) + d] = off;
+    if (d == 0) sched[k * (N_BUCKETS + 1) + N_BUCKETS] = total;
+    const int c = k ? CHUNK : FIRST_CHUNK;
+    m = (m + c - 1) / c;
+  }
+}
+
+__global__ void __launch_bounds__(HIST_THREADS)
+k_msm_scatter(const uint32_t* __restrict__ windows, const uint32_t* __restrict__ scalars,
+              const int* __restrict__ boff, int* __restrict__ sorted, int n) {
+  __shared__ int off[N_BUCKETS];
+  off[threadIdx.x] = boff[(size_t)blockIdx.x * N_BUCKETS + threadIdx.x];
+  __syncthreads();
+  const int lanes = N_WINDOWS * n, me = threadIdx.x & 31;
+  const int base = blockIdx.x * HIST_THREADS * HIST_LANES;
+  for (int k = 0; k < HIST_LANES; k++) {
+    const int lane = base + k * HIST_THREADS + threadIdx.x;
+    const int d = lane < lanes ? lane_digit(windows, scalars, n, lane) : 0;
+    const unsigned peers = __match_any_sync(0xffffffffu, d);
+    if (d) {
+      const int leader = __ffs(peers) - 1;
+      int pos = 0;
+      if (me == leader) pos = atomicAdd(&off[d], __popc(peers));
+      pos = __shfl_sync(peers, pos, leader);
+      sorted[pos + __popc(peers & ((1u << me) - 1u))] = lane;
+    }
+  }
+}
+
+// level 0: thread j sums one chunk of FIRST_CHUNK window points of its
+// bucket, through the sorted lane indices (this level is bound by the
+// card's product rate, not by a chain, so one thread per chunk)
+__global__ void __launch_bounds__(LEVEL0_THREADS)
+k_msm_level0(const uint32_t* __restrict__ windows, const int* __restrict__ sorted,
+             uint32_t* __restrict__ dst, const int* __restrict__ sched) {
+  __shared__ int out_off[N_BUCKETS + 1];
+  for (int t = threadIdx.x; t <= N_BUCKETS; t += LEVEL0_THREADS)
+    out_off[t] = sched[(N_BUCKETS + 1) + t];
+  __syncthreads();
+  const int j = blockIdx.x * LEVEL0_THREADS + threadIdx.x;
+  if (j >= out_off[N_BUCKETS]) return;
+  const int d = bucket_of(out_off, j);
+  const int s = sched[d] + (j - out_off[d]) * FIRST_CHUNK;
+  const int e = min(s + FIRST_CHUNK, sched[d + 1]);
+  const Pt<Fq>* pts = (const Pt<Fq>*)windows;
+  Pt<Fq> acc = pts[sorted[s]];
+  for (int t = s + 1; t < e; t++) pt_add(acc, acc, pts[sorted[t]]);
+  ((Pt<Fq>*)dst)[j] = acc;
+}
+
+// a later level: output j sums one chunk of CHUNK partials of its bucket,
+// by one team
+__global__ void __launch_bounds__(LEVEL_THREADS)
+k_msm_level(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
+            const int* __restrict__ sched, int level) {
+  __shared__ int out_off[N_BUCKETS + 1];
+  __shared__ Pt<Fq> acc[LEVEL_TEAMS];
+  __shared__ Fq slot[LEVEL_TEAMS][TEAM];
+  const int* in_off = sched + level * (N_BUCKETS + 1);
+  for (int t = threadIdx.x; t <= N_BUCKETS; t += LEVEL_THREADS)
+    out_off[t] = sched[(level + 1) * (N_BUCKETS + 1) + t];
+  __syncthreads();
+  int k;
+  unsigned mask;
+  const int team = team_of(k, mask);
+  const int j = blockIdx.x * LEVEL_TEAMS + team;
+  if (team < 0 || j >= out_off[N_BUCKETS]) return;
+  const int d = bucket_of(out_off, j);
+  const int s = in_off[d] + (j - out_off[d]) * CHUNK;
+  const int e = min(s + CHUNK, in_off[d + 1]);
+  const Pt<Fq>* pts = (const Pt<Fq>*)src;
+  copy_coord(&acc[team], pts + s, k);
+  __syncwarp(mask);
+  for (int t = s + 1; t < e; t++) team_add(&acc[team], &acc[team], pts + t, slot[team], k, mask);
+  copy_coord((Pt<Fq>*)dst + j, &acc[team], k);
+}
+
+// sum_d d B_d = sum_b 2^b G_b, G_b the sum of the buckets whose digit
+// has bit b set.  The buckets B_d (identity where empty; fin: the last
+// level's offsets) go to 256 slots, then 8 launches of an in-place
+// superset-sum transform (round b: 128 team additions sh[d] += sh[d + 2^b]
+// for d without bit b, one warp a block, so no SM runs more than 5 of
+// them) leave G_b in slot 2^b; one block doubles G_b b times and adds the
+// eight.
+__global__ void __launch_bounds__(N_BUCKETS)
+k_msm_gather(const uint32_t* __restrict__ parts, const int* __restrict__ fin,
+             uint32_t* __restrict__ buckets) {
+  const int d = threadIdx.x;
+  Pt<Fq>* out = (Pt<Fq>*)buckets + d;
+  if (d && fin[d + 1] > fin[d]) {
+    *out = ((const Pt<Fq>*)parts)[fin[d]];
+  } else {
+    pt_identity(*out);
+  }
+}
+
+__global__ void __launch_bounds__(32) k_msm_zeta(uint32_t* __restrict__ buckets, int b) {
+  __shared__ Fq slot[TEAMS_PER_WARP][TEAM];
+  int k;
+  unsigned mask;
+  const int tw = team_of(k, mask), team = blockIdx.x * TEAMS_PER_WARP + tw;
+  if (tw < 0 || team >= ZETA_TEAMS) return;
+  const int m = 1 << b, d = ((team >> b) << (b + 1)) | (team & (m - 1));   // bit b clear
+  Pt<Fq>* sh = (Pt<Fq>*)buckets;
+  team_add(&sh[d], &sh[d], &sh[d | m], slot[tw], k, mask);
+}
+
+__global__ void __launch_bounds__(64)
+k_msm_weigh(const uint32_t* __restrict__ buckets, uint32_t* __restrict__ sum) {
+  __shared__ Pt<Fq> g[DIGIT_BITS];
+  __shared__ Fq slot[2 * TEAMS_PER_WARP][TEAM];
+  int k;
+  unsigned mask;
+  const int team = team_of(k, mask);
+  if (team >= 0 && team < DIGIT_BITS) {
+    copy_coord(&g[team], (const Pt<Fq>*)buckets + (1 << team), k);
+    __syncwarp(mask);
+    for (int i = 0; i < team; i++) team_dbl(&g[team], &g[team], slot[team], k, mask);
+  }
+  __syncthreads();
+  for (int w = DIGIT_BITS / 2; w > 0; w >>= 1) {
+    if (team >= 0 && team < w) team_add(&g[team], &g[team], &g[team + w], slot[team], k, mask);
+    __syncthreads();
+  }
+  if (team == 0) copy_coord((Pt<Fq>*)sum, &g[0], k);
+}
+
+// the sum, affine, with one inversion
+__global__ void k_msm_normalize(const uint32_t* __restrict__ sum, uint32_t* __restrict__ out,
+                                uint8_t* __restrict__ out_inf) {
+  if (threadIdx.x) return;
+  const Pt<Fq> p = *(const Pt<Fq>*)sum;
+  Fq x, y;
+  const bool inf = fq_is_zero(p.z);
+  if (inf) {
+    fq_zero(x);
+    fq_zero(y);
+  } else {
+    Fq zi;
+    fq_inv_binary(zi, p.z);
+    fq_mul(x, p.x, zi);
+    fq_mul(y, p.y, zi);
+  }
+  fq_store(out, x);
+  fq_store(out + NW, y);
+  out_inf[0] = inf ? 1 : 0;
 }
 
 extern "C" int expand_windows(const void* pts, const void* inf, void* out, int n,
@@ -105,15 +522,56 @@ extern "C" int expand_windows(const void* pts, const void* inf, void* out, int n
   return (int)cudaGetLastError();
 }
 
-extern "C" int g1_msm(const void* windows, const void* scalars, void* partial, void* out,
-                      void* out_inf, int n, void* stream) {
+extern "C" int g1_msm(const void* windows, const void* scalars, void* scratch,
+                      long long scratch_words, void* out, void* out_inf, int n, void* marks,
+                      void* stream) {
+  MsmPlan p;
+  if (!msm_plan(n, p) || scratch_words < p.words) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (int)(((long long)N_WINDOWS * n + K8_THREADS - 1) / K8_THREADS);
-  k_msm_lanes<<<blocks, K8_THREADS, 0, s>>>((const uint32_t*)windows,
-                                           (const uint32_t*)scalars, (uint32_t*)partial, n);
-  int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  k_msm_sum_normalize<<<1, K8_THREADS, 0, s>>>((const uint32_t*)partial, blocks,
-                                              (uint32_t*)out, (uint8_t*)out_inf);
-  return (int)cudaGetLastError();
+  cudaEvent_t* ev = (cudaEvent_t*)marks;
+  int* base = (int*)scratch;
+  int *bhist = base + p.hist, *sched = base + p.sched, *sorted = base + p.sorted;
+  uint32_t* part[2] = {(uint32_t*)(base + p.part_a), (uint32_t*)(base + p.part_b)};
+  const uint32_t* win = (const uint32_t*)windows;
+  const uint32_t* sc = (const uint32_t*)scalars;
+  int rc;
+#define MSM_CHECK()                               \
+  if ((rc = (int)cudaGetLastError()) != 0) return rc
+  if (ev) cudaEventRecord(ev[0], s);
+  k_msm_hist<<<p.hist_blocks, HIST_THREADS, 0, s>>>(win, sc, bhist, n);
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[1], s);
+  k_msm_scan<<<1, N_BUCKETS, 0, s>>>(bhist, sched, p.hist_blocks, p.levels);
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[2], s);
+  k_msm_scatter<<<p.hist_blocks, HIST_THREADS, 0, s>>>(win, sc, bhist, sorted, n);
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[3], s);
+  k_msm_level0<<<(int)((p.bound[1] + LEVEL0_THREADS - 1) / LEVEL0_THREADS), LEVEL0_THREADS, 0, s>>>(
+      win, sorted, part[0], sched);
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[4], s);
+  for (int k = 1; k < p.levels; k++) {
+    const int blocks = (int)((p.bound[k + 1] + LEVEL_TEAMS - 1) / LEVEL_TEAMS);
+    k_msm_level<<<blocks, LEVEL_THREADS, 0, s>>>(part[(k + 1) & 1], part[k & 1], sched, k);
+    MSM_CHECK();
+  }
+  if (ev) cudaEventRecord(ev[5], s);
+  uint32_t* buckets = (uint32_t*)(base + p.buckets);
+  k_msm_gather<<<1, N_BUCKETS, 0, s>>>(part[(p.levels - 1) & 1],
+                                      sched + p.levels * (N_BUCKETS + 1), buckets);
+  MSM_CHECK();
+  for (int b = 0; b < DIGIT_BITS; b++) {
+    k_msm_zeta<<<ZETA_BLOCKS, 32, 0, s>>>(buckets, b);
+    MSM_CHECK();
+  }
+  k_msm_weigh<<<1, 64, 0, s>>>(buckets, (uint32_t*)(base + p.sum));
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[6], s);
+  k_msm_normalize<<<1, 32, 0, s>>>((const uint32_t*)(base + p.sum), (uint32_t*)out,
+                                   (uint8_t*)out_inf);
+  MSM_CHECK();
+  if (ev) cudaEventRecord(ev[7], s);
+#undef MSM_CHECK
+  return 0;
 }

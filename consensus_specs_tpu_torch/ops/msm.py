@@ -3,16 +3,20 @@
 
 Counterpart of ``consensus_specs_tpu/ops/jax_bls/msm.py``; the CUDA side
 is ``csrc/msm.cu`` over ``csrc/points.cuh``.  The MSM behind the KZG
-library's ``g1_lincomb`` (``specs/deneb/polynomial-commitments.md:268``)
-is digit-parallel, as in the JAX package:
+library's ``g1_lincomb`` (``specs/deneb/polynomial-commitments.md:268``):
 
 1. K7 expands each point into its 32 window multiples
    ``W[w][i] = [2^(8w)] P_i`` (8 doublings per window), once per fixed
    basis (the trusted setup, kept on the card by ``_setup_cache``) or
    once per call for any other basis;
-2. K8 computes ``[d_{w,i}] W[w][i]`` for every (window, point) lane, d
-   the w-th byte of scalar i read straight from its words, sums every
-   lane and normalizes.
+2. K8 sums ``[d_{w,i}] W[w][i]`` over every (window, point) lane, d the
+   w-th byte of scalar i read straight from its words, by Pippenger's
+   bucket method: the table already carries each window's weight, so all
+   lanes share one set of 255 buckets and the result is
+   ``sum_d d B_d``.  The lanes are sorted into bucket order, each
+   bucket's run is summed in chunks of at most :data:`FIRST_CHUNK`
+   points over a few levels (:func:`msm_plan`), and the 255 bucket sums
+   are weighted through their digits' bits and normalized.
 
 K7 replaces ``msm.py:38`` ``_expand_windows``; K8 replaces ``msm.py:48``
 ``_msm_core`` (``points.py:244`` ``g1_scalar_mul``, ``:252``
@@ -21,6 +25,8 @@ K7 replaces ``msm.py:38`` ``_expand_windows``; K8 replaces ``msm.py:48``
 of the canonical scalar, little-endian.  The window table is projective
 ``(32, N, 3, 12)`` int32 words (Montgomery form), window-major.
 """
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -34,7 +40,14 @@ from .torch_bls import points as PT
 N_WINDOWS = 32           # ceil(255 / 8)
 WINDOW_BITS = 8
 SCALAR_WORDS = 8
-K8_THREADS = 128         # lanes per block of K8's first launch (csrc/msm.cu)
+# K8's schedule (csrc/msm.cu)
+N_BUCKETS = 256          # digit values; bucket 0 stays empty
+HIST_LANES = 1024        # lanes per block of the histogram and scatter launches
+FIRST_CHUNK = 4          # window points per chunk at level 0
+CHUNK = 2                # partials per chunk at the later levels
+PT_WORDS = 36            # int32 words of a projective point
+STAGES = ("histogram", "scan", "scatter", "level 0", "later levels", "combine",
+          "normalize")
 
 
 def scalar_words(scalars) -> torch.Tensor:
@@ -138,16 +151,55 @@ def msm_core_ladder_fq_products(windows, scalars) -> int:
     return n + max(len(live) - 1, 0) * PT.G1_ADD + L.INV_MULS + 2
 
 
+class MsmPlan(NamedTuple):
+    """K8's launch and scratch plan for N points (the same arithmetic as
+    ``csrc/msm.cu`` ``msm_plan``)."""
+    lanes: int          # 32 N
+    hist_blocks: int    # blocks of the histogram and scatter launches
+    levels: int         # chunk levels: 1 + ceil(log2(ceil(lanes / FIRST_CHUNK)))
+    bounds: tuple       # upper bound of each level's run total (level 0: lanes)
+    words: int          # int32 words of scratch
+
+
+def msm_plan(n: int) -> MsmPlan:
+    """The levels reduce the largest possible run (every lane in one
+    bucket) to one point; a level's outputs number at most
+    ``floor(M / chunk) + 255`` for M inputs over at most 255 buckets.
+    Scratch: per-block histograms, the (levels + 1, 257) schedule, the
+    sorted lane indices, two partial buffers, the combine's 256 buckets,
+    the projective sum."""
+    if not 1 <= n <= (1 << 25) // N_WINDOWS:
+        raise ValueError(f"msm_plan: n={n} out of range")
+    lanes = N_WINDOWS * n
+    hist_blocks = -(-lanes // HIST_LANES)
+    m, levels = -(-lanes // FIRST_CHUNK), 1
+    while m > 1:
+        m, levels = -(-m // CHUNK), levels + 1
+    bounds, b = [lanes], lanes
+    for k in range(levels):
+        b = min(b, b // (CHUNK if k else FIRST_CHUNK) + N_BUCKETS - 1)
+        bounds.append(b)
+    most = max(bounds[1:])
+    sorted_at = hist_blocks * N_BUCKETS + (levels + 1) * (N_BUCKETS + 1)
+    part_a = -(-(sorted_at + lanes) // 4) * 4
+    return MsmPlan(lanes, hist_blocks, levels, tuple(bounds),
+                   part_a + (2 * most + N_BUCKETS + 1) * PT_WORDS)
+
+
 def msm_core(windows, scalars):
     """K8.  ``windows``: (32, N, 3, 12) int32 projective window multiples
     (K7's output), ``scalars``: (N, 8) int32 little-endian words of the
     canonical scalars.  Returns the affine sum_i [k_i] P_i as (2, 12)
     int32 and its infinity flag (bool, shape ()).
 
-    CUDA: two launches.  One thread per (window, point) lane runs its
-    digit's double-and-add and each block of 128 lanes sums its results
-    in a shared-memory tree; one block then sums the block partials and
-    inverts Z.  Bound: integer multiply-adds (``msm_core_fq_products``)."""
+    CUDA: the bucket method in ``levels + 14`` launches on the current
+    stream (:func:`msm_plan`; 30 at N = 4096): digit histograms, a scan,
+    the scatter into bucket order, one launch per chunk level, ten that
+    weight the 255 bucket sums through their digits' bits, one thread
+    that inverts Z.  Past level 0 every point operation is made by a team
+    of 6 threads (two waves of products, not one thread's chain of 14).
+    Scratch: one int32 buffer of ``msm_plan(N).words``.  Bound: integer
+    multiply-adds (``msm_core_fq_products``)."""
     dev = _build.same_device(windows, scalars)
     n = windows.shape[1]
     _build.check(windows, "windows", torch.int32, (N_WINDOWS, n, 3, 12))
@@ -156,12 +208,39 @@ def msm_core(windows, scalars):
         raise ValueError("msm_core: empty basis")
     if dev.type == "cpu":
         return msm_core_plain(windows, scalars)
-    blocks = -(-N_WINDOWS * n // K8_THREADS)
-    partial = torch.empty((blocks, 3, 12), dtype=torch.int32, device=dev)
-    out = torch.empty((2, 12), dtype=torch.int32, device=dev)
-    inf = torch.empty((), dtype=torch.bool, device=dev)
-    _build.launch("g1_msm", windows, scalars, partial, out, inf, n)
+    out, inf, _ = _msm_launch(windows, scalars, None)
     return out, inf
+
+
+def _msm_launch(windows, scalars, marks):
+    n = windows.shape[1]
+    plan = msm_plan(n)
+    scratch = torch.empty(plan.words, dtype=torch.int32, device=windows.device)
+    out = torch.empty((2, 12), dtype=torch.int32, device=windows.device)
+    inf = torch.empty((), dtype=torch.bool, device=windows.device)
+    _build.launch("g1_msm", windows, scalars, scratch, plan.words, out, inf, n, marks)
+    return out, inf, plan
+
+
+def msm_core_stage_ms(windows, scalars, reps: int = 10) -> dict:
+    """Device ms per call of each K8 stage (:data:`STAGES`) on CUDA
+    tensors, from events the C entry records between its stages, over
+    ``reps`` calls after one warm-up; "launches": CUDA launches per call."""
+    msm_core(windows, scalars)
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
+           for _ in range(reps)]
+    for row in evs:
+        for e in row:
+            e.record()
+    torch.cuda.synchronize()
+    for row in evs:
+        handles = torch.tensor([e.cuda_event for e in row], dtype=torch.int64)
+        _, _, plan = _msm_launch(windows, scalars, handles)
+    torch.cuda.synchronize()
+    out = {s: sum(row[i].elapsed_time(row[i + 1]) for row in evs) / reps
+           for i, s in enumerate(STAGES)}
+    out["launches"] = plan.levels + 14
+    return out
 
 
 # ---------------------------------------------------------------------------

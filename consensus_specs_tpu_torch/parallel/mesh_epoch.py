@@ -69,6 +69,7 @@ _U64 = 1 << 64
 _SIGN = -(1 << 63)                  # int64 with the top bit alone
 INCL_SENTINEL = _U64 - 1            # K16: a lane no entry reaches
 SCAN_CHUNK = 2048                   # K17 lanes per block (csrc/mesh.cu)
+REDUCE_SCRATCH = 4096 * 7           # K15 partials: blocks x (4 sums, 3 maxima)
 SCAN_CAP = None                     # K17's cap in the dispatch (None: the span's lanes)
 MASKS = ("eligible", "active", "target")
 
@@ -193,7 +194,11 @@ def epoch_reduce(reg=None, *, max_cols=(), sums=False, part=None, n_flags=0, row
     uint8 flags; lanes active at ``prev``, unslashed, with the flag) or one
     sum per row of ``rows`` ((k, V) bool).  ``max_cols``: up to three (V,)
     int64 columns, their unsigned maxima per span.  ``masks``: any of
-    :data:`MASKS`.  Bound: bytes (:func:`epoch_reduce_bytes`)."""
+    :data:`MASKS`.  CUDA: one launch, compiled for each of the epoch
+    engine's five calls (``K15_MODES`` in csrc/mesh.cu); any other
+    combination raises.  The blocks' partials go to a scratch buffer of
+    :data:`REDUCE_SCRATCH` int64 words.  Bound: bytes
+    (:func:`epoch_reduce_bytes`)."""
     n = _lanes(reg, max_cols)
     k = n_flags if part is not None else (rows.shape[0] if rows is not None else 0)
     if spans < 1 or n % spans or len(max_cols) > 3 or k > 3 or not set(masks) <= set(MASKS):
@@ -219,12 +224,13 @@ def epoch_reduce(reg=None, *, max_cols=(), sums=False, part=None, n_flags=0, row
     out_max = torch.empty((len(max_cols), spans), dtype=torch.int64, device=dev) \
         if max_cols else None
     found = {m: torch.empty(n, dtype=torch.bool, device=dev) for m in masks}
+    scratch = torch.empty(REDUCE_SCRATCH, dtype=torch.int64, device=dev)
     cols = list(max_cols) + [None] * (3 - len(max_cols))
     _build.launch("epoch_reduce", reg.get("eff"), reg.get("act"), reg.get("ext"), reg.get("wd"),
                   reg.get("sl"), part, rows, *cols, out_sums, out_max, found.get("eligible"),
-                  found.get("active"), found.get("target"), n // spans, spans,
-                  k if sums else 0, int(part is not None), len(max_cols), prev % _U64,
-                  cur % _U64, tgt % _U64)
+                  found.get("active"), found.get("target"), scratch, REDUCE_SCRATCH,
+                  n // spans, spans, k if sums else 0, int(part is not None), len(max_cols),
+                  prev % _U64, cur % _U64, tgt % _U64)
     return Reduced(out_sums, out_max, found.get("eligible"), found.get("active"),
                    found.get("target"))
 

@@ -7,7 +7,14 @@ numpy-kernel mode in one subprocess, started first so both sides compute
 at once.
 
 Edge cases at N = 1, 3, 8: scalars 0, 1 and r - 1; bases with a repeated
-point, a point beside its negation, and the point at infinity."""
+point, a point beside its negation, and the point at infinity.
+
+A model of K8's bucket schedule (``csrc/msm.cu``: digit histograms, the
+scan, the scatter, the chunk levels, the superset-sum combine) runs on
+the plain point operations with the kernel's index arithmetic and is
+held byte-exact against the oracle's Pippenger and the JAX ``_msm_core``
+under skewed digits: every scalar one repeated byte (one bucket), one
+non-zero digit, N = 1 and N = 300."""
 import json
 
 import numpy as np
@@ -20,11 +27,16 @@ from consensus_specs_tpu_torch.ops import msm
 from consensus_specs_tpu_torch.ops.bls12_381.curve import G1Point, g1_from_compressed
 from consensus_specs_tpu_torch.ops.bls12_381.fields import Fq, R_ORDER
 from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+from consensus_specs_tpu_torch.ops import kzg as K
 from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+from consensus_specs_tpu_torch.ops.torch_bls import points as PT
 from tests._torch_port import finish, one_torch_thread, start_numpy_kernels  # noqa: F401
 
 SEED = 38
 SIZES = (1, 3, 8)
+ONE_BYTE = int.from_bytes(bytes([0x5A]) * 32, "little")   # < r: every digit 0x5A
+# skewed digit distributions on the 8-point base, run by JAX as well
+SKEWED = {"one_byte": [ONE_BYTE] * 8, "one_digit": [0] * 7 + [7 << 64]}
 
 _JAX_MSM = r"""
 import json, sys
@@ -64,6 +76,8 @@ def case():
     cases = {n: _case(n, rng) for n in SIZES}
     arg = {str(n): {"points": [p.to_compressed().hex() for p in pts],
                     "scalars": [str(s) for s in sc]} for n, (pts, sc) in cases.items()}
+    for name, sc in SKEWED.items():
+        arg[name] = {"points": arg["8"]["points"], "scalars": [str(s) for s in sc]}
     proc = start_numpy_kernels(_JAX_MSM, json.dumps(arg))
     ours = {}
     for n, (pts, sc) in cases.items():
@@ -74,7 +88,7 @@ def case():
                    "msm": msm.g1_msm(port_pts, sc, device="cpu")}
     out = finish(proc)
     theirs = json.loads(out.split("RESULT=", 1)[1])
-    return ours, {int(k): v for k, v in theirs.items()}
+    return ours, {int(k) if k.isdigit() else k: v for k, v in theirs.items()}
 
 
 def _affine(words: torch.Tensor) -> list:
@@ -194,3 +208,146 @@ def test_wrappers_validate_arguments(k):
                               torch.zeros((2, 8), dtype=torch.int32)),
          lambda: msm.msm_core(torch.zeros((32, 2, 3, 12), dtype=torch.int32),
                               torch.zeros((3, 8), dtype=torch.int32))][k]()
+
+
+# ---------------------------------------------------------------------------
+# a model of K8's bucket schedule (csrc/msm.cu) on the plain point operations
+# ---------------------------------------------------------------------------
+
+def _add(p, q):
+    return PT.complete_add(PT._G1, p, q)
+
+
+def _schedule_msm(windows, scalars, seed=0):
+    """K8's stages with the kernel's index arithmetic: per-block digit
+    histograms of HIST_LANES lanes (digit 0 and infinite window points
+    skipped), the scan (counts, every block's offsets, the level
+    schedule), the scatter (a seeded order inside each block: the order
+    in a bucket is free), the chunk levels (chunks of FIRST_CHUNK, then
+    CHUNK, never crossing a bucket), the superset-sum combine and the
+    normalization.  Returns the affine words, the infinity flag and every
+    level's output total."""
+    n = windows.shape[1]
+    plan = msm.msm_plan(n)
+    nb, hl = msm.N_BUCKETS, msm.HIST_LANES
+    pts = L.unpack(windows).reshape(plan.lanes, 3, L.NLIMB)
+    finite = (windows[:, :, 2] != 0).any(dim=-1).reshape(-1)
+    digit = torch.where(finite, msm._digits(scalars).reshape(-1), 0)
+    hist = torch.stack([torch.bincount(digit[b * hl:(b + 1) * hl], minlength=nb)
+                        for b in range(plan.hist_blocks)])
+    hist[:, 0] = 0
+    count = hist.sum(0)
+    boff = torch.cumsum(count, 0) - count + torch.cumsum(hist, 0) - hist
+    sched, m = [], count
+    for k in range(plan.levels + 1):
+        sched.append(torch.cat([torch.cumsum(m, 0) - m, m.sum().reshape(1)]))
+        m = -(-m // (msm.CHUNK if k else msm.FIRST_CHUNK))
+    order = torch.empty(int(count.sum()), dtype=torch.int64)
+    gen = torch.Generator().manual_seed(seed)
+    for b in range(plan.hist_blocks):
+        off = boff[b].clone()
+        lanes = torch.arange(b * hl, min((b + 1) * hl, plan.lanes))
+        for lane in lanes[torch.randperm(len(lanes), generator=gen)].tolist():
+            d = int(digit[lane])
+            if d:
+                order[off[d]] = lane
+                off[d] += 1
+    vals, totals = pts[order], []
+    for k in range(plan.levels):
+        chunk = msm.CHUNK if k else msm.FIRST_CHUNK
+        o_in, o_out = sched[k], sched[k + 1]
+        j = torch.arange(int(o_out[nb]))
+        totals.append(len(j))
+        d = torch.searchsorted(o_out[:nb], j, right=True) - 1      # the kernels' bucket_of
+        s = o_in[d] + (j - o_out[d]) * chunk
+        e = torch.minimum(s + chunk, o_in[d + 1])
+        acc = vals[s]
+        for i in range(1, chunk):
+            ok = (s + i < e)[:, None, None]
+            acc = torch.where(ok, _add(acc, vals[torch.where(s + i < e, s + i, s)]), acc)
+        vals = acc
+    fin = sched[plan.levels]
+    filled = fin[1:] > fin[:-1]
+    filled[0] = False
+    assert int((fin[1:] - fin[:-1]).max()) <= 1
+    buckets = PT.identity_like(PT._G1, torch.zeros((nb, L.NLIMB), dtype=torch.int64))
+    buckets[filled] = vals[fin[:nb][filled]]
+    for b in range(msm.WINDOW_BITS):
+        low = torch.tensor([d for d in range(nb) if not d >> b & 1])
+        buckets[low] = _add(buckets[low], buckets[low | 1 << b])
+    g = buckets[[1 << b for b in range(msm.WINDOW_BITS)]]
+    for i in range(msm.WINDOW_BITS - 1):
+        more = (torch.arange(msm.WINDOW_BITS) > i)[:, None, None]
+        g = torch.where(more, PT.complete_dbl(PT._G1, g), g)
+    for w in (4, 2, 1):
+        g = _add(g[:w], g[w:2 * w])
+    out, inf = PT.normalize(PT._G1, g[0])
+    return L.pack(out), inf, totals
+
+
+def _schedule_point(windows, scalars, seed=0):
+    out, inf, totals = _schedule_msm(windows, scalars, seed)
+    bounds = msm.msm_plan(windows.shape[1]).bounds
+    assert all(t <= b for t, b in zip(totals, bounds[1:])), (totals, bounds)
+    return C.unpack_g1(out[None], inf.reshape(1))[0]
+
+
+def _oracle_case(name: str):
+    rng = np.random.default_rng(SEED + 1)
+    p, step = G1Point.inf(), g1_from_compressed(JG1.mult(int(rng.integers(2, 2**62))).to_compressed())
+    walk = []
+    for _ in range(300):
+        p = p + step
+        walk.append(p)
+    uniform = [int.from_bytes(rng.bytes(32), "big") % R_ORDER for _ in range(300)]
+    edges = [walk[0], walk[0], -walk[0], G1Point.inf(), walk[5], walk[6], walk[6], -walk[6]]
+    return {"uniform": (walk[:8], uniform[:8]),
+            "one_byte": (walk[:8], [ONE_BYTE] * 8),
+            "one_digit": (walk[:8], [0] * 7 + [7 << 64]),
+            "zero_one_r-1": (walk[:3], [0, 1, R_ORDER - 1]),
+            "n1": (walk[:1], uniform[:1]),
+            "n300": (walk, uniform),
+            "edges": (edges, uniform[:8]),
+            "all_zero": (walk[:8], [0] * 8)}[name]
+
+
+@pytest.mark.parametrize("name", ["uniform", "one_byte", "one_digit", "zero_one_r-1", "n1",
+                                  "n300", "edges", "all_zero"])
+def test_bucket_schedule_matches_pippenger(name):
+    """The schedule model is byte-exact against the oracle's Pippenger
+    (and, at 8 points or fewer, against K8's plain version) whatever the
+    digits; two scatter orders give the same point."""
+    pts, scalars = _oracle_case(name)
+    aff, inf = C.pack_g1(pts)
+    windows = msm.expand_windows(aff, inf)
+    sc = msm.scalar_words(scalars)
+    got = _schedule_point(windows, sc)
+    assert got.to_compressed() == K._pippenger_msm(pts, scalars).to_compressed()
+    if len(pts) <= 8:
+        assert got == _schedule_point(windows, sc, seed=1)
+        out, flag = msm.msm_core_plain(windows, sc)
+        assert got == C.unpack_g1(out[None], flag.reshape(1))[0]
+
+
+@pytest.mark.parametrize("key", list(SIZES) + list(SKEWED))
+def test_bucket_schedule_matches_jax_msm_core(case, key):
+    """The schedule model on the JAX ``_expand_windows`` table gives the
+    JAX ``_msm_core``'s point, byte for byte."""
+    ours, theirs = case
+    scalars = SKEWED[key] if key in SKEWED else ours[key]["scalars"]
+    got = _schedule_point(_jax_windows(theirs[key]["windows"]), msm.scalar_words(scalars))
+    assert got.to_compressed().hex() == theirs[key]["msm"]
+
+
+@pytest.mark.parametrize("n", [1, 6, 300, 4032, 4096])
+def test_msm_plan_covers_extreme_digit_spreads(n):
+    """The plan's bounds cover every level's output total, and its levels
+    take every bucket down to one point, both when one bucket holds every
+    lane and when the lanes spread over all 255 buckets."""
+    plan = msm.msm_plan(n)
+    for counts in ([plan.lanes], [plan.lanes // 255 + (i < plan.lanes % 255) for i in range(255)]):
+        m = counts
+        for k in range(plan.levels):
+            m = [-(-x // (msm.CHUNK if k else msm.FIRST_CHUNK)) for x in m]
+            assert sum(m) <= plan.bounds[k + 1]
+        assert max(m) == 1
