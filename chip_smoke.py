@@ -9,9 +9,11 @@ post-epoch roots through the mesh engine), time.
     python3 chip_smoke.py [--validators N]
     python3 chip_smoke.py --probe [--root DIR] [--sweep RUNS]
 
-``--probe`` runs no phase: it times K8 at the path's three shapes (with
-its stages) and K15 at the epoch engine's max-only and rewards calls
-beside ``torch.amax`` and an empty launch, through the wrappers alone, so
+``--probe`` runs no phase: it times K7 at every shape of the blob and
+sampling paths, K4 at the block flush's, the per-lane batch's and the
+blob and cell verifies' shapes, K8 at the path's three shapes (with its
+stages) and K15 at the epoch engine's max-only and rewards calls beside
+``torch.amax`` and an empty launch, through the wrappers alone, so
 that it measures any tree of the port: ``--root`` names a checkout of it
 inside this one (an unpacked parent commit; default: this checkout).
 With ``--sweep RUNS`` it then times the columnar engine against the mesh
@@ -33,7 +35,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    bad signature named by ``last_results``, and AggregateVerify over 16
    messages;
 4. hold each kernel byte-identical to its plain version again at every
-   shape the block gave it (the flush's and the per-lane batch's calls),
+   shape the block gave it (the flush's and the per-lane batch's calls;
+   K4's GT values too, and on the flush with one pair's P negated),
    then time each kernel at the flush's shapes (CUDA events, after one
    warm-up) beside its plain version and its bound, and time the block
    flush and the 128-lane batch;
@@ -64,15 +67,17 @@ Phases, each fatal on failure (no phase's failure is caught):
    base, P beside -P and the point at infinity; K8 also on skewed digits:
    every scalar one repeated byte, all 32 N lanes in one bucket, and a
    single live lane at N = 1024, every other point at infinity at N =
-   4096; FFTs at n = 2, 256, 8192 forward, inverse and round trip against
-   the host ``fft_field``);
+   4096; K7 also at N = 5, 6, 33, a partial warp of teams; FFTs at n = 2,
+   256, 8192 forward, inverse and round trip against the host
+   ``fft_field``);
 8. a block's blobs through the port's KZG library on the card
    (``bls.use_torch()``, the real trusted setup): six blobs of 4096
    seeded field elements, a commitment and a proof each (12 MSMs of 4096
    points on K7/K8), ``verify_blob_kzg_proof_batch`` with one K4 launch,
    the batch with one element changed rejected, blob 0's commitment and
    proof equal to the oracle's Pippenger, every K7/K8/K4 call of the
-   phase held against its plain version; commit, prove and verify timed;
+   phase held against its plain version (K4's GT values too, and on the
+   call with one pair's P negated); commit, prove and verify timed;
 9. PeerDAS: the six blobs' cells, ``recover_cells_batch`` from the same
    64 of 128 columns of every blob (one group: 4 batched FFTs of (6, 8192)
    on K9, every launch held against the plain version) equal to the
@@ -164,8 +169,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    PyTorch call computes the same function, that call, and an empty
    launch; print the ``kernels`` line (K1-K18, every number measured in
    this run but the bounds; K8 with its per-stage times at the
-   commitment, cell and verify shapes), the card line and the result
-   line.
+   commitment, cell and verify shapes; K7 at every launched shape and K4
+   at every path's shape, each with its launches), the card line and the
+   result line.
+
+The hashlib roots of phases 6, 10, 13 and 14 (a fresh deserialization of
+each 2^20-validator state, hashed without the batched hasher) are
+recomputed in three worker processes while the run goes on; the run
+waits for all of them, and fails on any that differs, before phase 16's
+result lines.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
@@ -418,22 +430,61 @@ class HasherClock:
         self.merkle.set_batched_hasher_np(self.fns[1])
 
 
-def hashlib_root(ssz, merkle, typ, value) -> tuple:
-    """The root of ``value`` recomputed the independent way: serialize,
-    deserialize afresh, hash with no batched hasher (hashlib only).
-    Returns (root, serialize+deserialize s, hashing s)."""
+def hashlib_root_job(fork: str, data: bytes) -> tuple:
+    """A mainnet ``fork`` state's root recomputed the independent way, in a
+    worker process: deserialize ``data`` afresh, hash with no batched
+    hasher (hashlib only).  Returns (root, deserialize s, hashing s)."""
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.utils import ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+    typ = build_spec(fork, "mainnet").BeaconState
     t0 = time.perf_counter()
-    fresh = ssz.deserialize(typ, ssz.serialize(value))
+    fresh = ssz.deserialize(typ, data)
     t1 = time.perf_counter()
-    saved = (merkle._batched_hasher, merkle._batched_hasher_np)
     merkle.set_batched_hasher(None)
     merkle.set_batched_hasher_np(None)
-    try:
-        root = bytes(ssz.hash_tree_root(fresh))
-    finally:
-        merkle.set_batched_hasher(saved[0])
-        merkle.set_batched_hasher_np(saved[1])
+    root = bytes(ssz.hash_tree_root(fresh))
     return root, t1 - t0, time.perf_counter() - t1
+
+
+class HashlibRoots:
+    """The hashlib recomputes of the 2^20-validator roots, each in a
+    worker process while the run goes on: ``submit`` serializes the state
+    here, ``finish`` waits for every recompute and fails the run on any
+    root that differs.  ``close`` stops the workers."""
+
+    WORKERS = 3
+
+    def __init__(self):
+        self.pool, self.jobs = None, []
+
+    def submit(self, what: str, spec, ssz, state, want: bytes) -> None:
+        if self.pool is None:
+            import multiprocessing as mp
+            from concurrent.futures import ProcessPoolExecutor
+            self.pool = ProcessPoolExecutor(self.WORKERS, mp_context=mp.get_context("spawn"))
+        t0 = time.perf_counter()
+        data = bytes(ssz.serialize(state))
+        t_ser = time.perf_counter() - t0
+        self.jobs.append((what, want, t_ser,
+                          self.pool.submit(hashlib_root_job, type(spec).fork, data)))
+
+    def finish(self) -> None:
+        for what, want, t_ser, job in self.jobs:
+            root, t_de, t_hl = job.result()
+            check(root == want, f"{what}: the hashlib root {root.hex()} differs from "
+                                f"{want.hex()}")
+            print(f"hashlib root of {what}: equal to the run's ({t_ser:.2f} s serialize here; "
+                  f"in a worker {t_de:.2f} s deserialize afresh, {t_hl:.2f} s hashing)")
+        self.jobs = []
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.shutdown(cancel_futures=True)
+            self.pool = None
+
+
+hashlib_roots = HashlibRoots()
 
 
 def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
@@ -524,15 +575,13 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     check(cold_launches["hash64"] == COLD_K5.get(n_validators, cold_launches["hash64"]) > 0,
           f"the cold root must launch K5 {COLD_K5.get(n_validators, 'some')} times: "
           f"{cold_launches}")
-    root_hl, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, state)
-    check(root_k5 == root_hl, "the cold root on K5 and K18 differs from the hashlib root")
+    hashlib_roots.submit("the phase0 cold state", spec, ssz, state, root_k5)
     k18_err = spans.hold(mesh_merkle.merkle_levels_plain)
-    print(f"cold root: {root_k5.hex()} equal on K5 and K18 and on hashlib; card path "
+    print(f"cold root: {root_k5.hex()} equal on K5 and K18 (hashlib: a worker's); card path "
           f"{t_cold:.3f} s (in the batched hasher {hclock.ms / 1e3:.3f} s; K5 {cold.count} "
           f"launches; K18 {cold_launches['merkle_levels']} launches in {spans.count} span "
           f"builds at leaves {sorted(a[0].shape[0] for a, _ in spans.calls)}, each held "
-          f"against its plain version), hashlib {t_hl:.3f} s (+ {t_ser:.2f} s "
-          f"serialize/deserialize); pairs by K5 {cold_stats['pairs_batched']}, by hashlib "
+          f"against its plain version); pairs by K5 {cold_stats['pairs_batched']}, by hashlib "
           f"{cold_stats['pairs_hashlib']} on {card}")
 
     # -- the block -------------------------------------------------------------
@@ -658,11 +707,8 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
           f"{prof_wall:.2f} ms, device busy {busy:.2f} ms, idle share "
           f"{1 - busy / prof_wall:.3f}; device ms by event: {top} on {card}")
 
-    root_post, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, post)
-    check(root_post == bytes(block.state_root),
-          "the post-state's hashlib root differs from the block's state_root")
-    print(f"post-state root: hashlib recompute equals the block's state_root "
-          f"({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize)")
+    hashlib_roots.submit("the phase0 block's post-state (the block's state_root)", spec, ssz,
+                         post, bytes(block.state_root))
     del post
 
     # -- the two rejections ---------------------------------------------------------
@@ -756,7 +802,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
             "library_ms": None, "rows": n, "h2d_ms": small_h2d, "d2h_ms": small_d2h,
             "hashlib_ms_at_cold_max": hl_big_ms, "cold_max_rows": int(big.shape[0]),
             "cold_max_ms": big_ms, "cold_kernel_ms": cold_kernel_ms,
-            "cold_root_s": t_cold, "hashlib_root_s": t_hl}, launches, state, \
+            "cold_root_s": t_cold}, launches, state, \
         {"calls": spans.calls, "launches": cold_launches["merkle_levels"], "err": k18_err}
 
 
@@ -790,6 +836,8 @@ def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
 # ---------------------------------------------------------------------------
 
 MSM_SIZES = (1, 3, 8, 300)
+# K7 alone at sizes that fill no warp of 8 teams (with points at infinity)
+K7_SIZES = (5, 6, 33)
 # K8's skewed inputs (phase 7): the one-bucket and single-lane MSMs, and the
 # one with every other point at infinity
 K8_SKEW_POINTS = (1024, 4096)
@@ -870,6 +918,75 @@ class CallRecorder:
         return err
 
 
+def k4_gt_plain(torch, pairing):
+    """K4's plain version for a hold that also holds the kernel's GT
+    values: on the call's arguments ``pairing_check_gt`` (one more launch
+    of the kernel, which also writes each group's f^(3 (p^12 - 1) / r))
+    must equal ``pairing_check_gt_plain`` byte for byte, verdicts and
+    values; returns the plain verdicts, which the hold compares with the
+    call's own."""
+    def plain(*args):
+        want = pairing.pairing_check_gt_plain(*args)
+        compare(torch, f"K4 GT values at {[tuple(a.shape) for a in args]}",
+                pairing.pairing_check_gt(*args), want)
+        return want[0]
+    return plain
+
+
+def k4_tampered(torch, pairing, args, tag: str) -> None:
+    """One K4 call with the P of its first pair that is not degenerate
+    negated: that pair's group, which held, must fail (its product is
+    divided by e(P, Q)^2, not one for such a pair).  Verdicts and GT values
+    byte-identical to the plain version's."""
+    from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+    t0 = time.perf_counter()
+    live = (~args[2]).nonzero().flatten().tolist()
+    check(bool(live), f"K4: {tag} has no pair that is not degenerate")
+    i = live[0]
+    g = int((args[3] <= i).sum()) - 1
+    check(bool(pairing.pairing_check(*args)[g]), f"K4: {tag}: group {g} must hold untouched")
+    p = args[0].clone()
+    p[i, 1] = L.pack(L.neg_mod(L.unpack(args[0][i, 1])))
+    bad = (p,) + tuple(args[1:])
+    got = pairing.pairing_check_gt(*bad)
+    compare(torch, f"K4 GT values, {tag} with one pair tampered", got,
+            pairing.pairing_check_gt_plain(*bad))
+    check(not bool(got[0][g]), f"K4: {tag} with one pair tampered must fail")
+    print(f"check pairing_check ({tag}, pair {i}'s P negated): its group fails; verdicts and "
+          f"GT values byte-identical to the plain version's ({time.perf_counter() - t0:.1f} s)")
+
+
+def k4_shapes(torch, card, pairing, calls: dict) -> list:
+    """K4 at each path's call: pairs, groups, the launches counted on that
+    path's run, device ms per call queued ahead, the bound. ``calls`` maps
+    a path to (its recorded K4 arguments, its K4 launch count)."""
+    from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+    out = []
+    for path, (args, launches) in calls.items():
+        fq = pairing.pairing_check_fq_products(*args)
+        out.append({"path": path, "pairs": int(args[0].shape[0]),
+                    "groups": int(args[3].shape[0]) - 1,
+                    "ms": queued_ms(torch, lambda: pairing.pairing_check(*args), 5),
+                    "bound_ms": fq * L.IMAD_PER_FQ_MUL / IMAD_PER_S * 1e3,
+                    "launches": launches})
+    print("time pairing_check at every path's shape (ms per call queued ahead; bound): "
+          + "; ".join(f"{v['path']} ({v['pairs']} pairs, {v['groups']} groups) {v['ms']:.3f} "
+                      f"({v['bound_ms']:.5f})" for v in out) + f" on {card}")
+    return out
+
+
+def first_by_points(rec, counts: dict) -> dict:
+    """{N: (the first K7 call's arguments at N points, the path's calls at
+    N)} of a recorder of ``expand_windows``; ``counts``: its ``by_shape``
+    when the path's run ended."""
+    out = {}
+    for args, _ in rec.calls:
+        n = int(args[0].shape[0])
+        if n not in out:
+            out[n] = (args, counts.get(str(rec.shapes(args)), 0))
+    return out
+
+
 def field_elements(tag: bytes, n: int, r: int) -> list:
     """n seeded canonical field elements."""
     raw = hashlib.shake_256(SEED + tag).digest(32 * n)
@@ -887,7 +1004,7 @@ def plain_ms(torch, fn) -> float:
 
 
 def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES,
-                         skew_sizes=K8_SKEW_POINTS) -> dict:
+                         skew_sizes=K8_SKEW_POINTS, k7_sizes=K7_SIZES) -> dict:
     """Phase 7: K7, K8 and K9 byte-identical to their plain versions on the
     card and to the oracle on small seeded inputs; returns the largest
     word difference of each (0)."""
@@ -915,6 +1032,17 @@ def slice3_kernel_checks(torch, dev, msm_sizes=MSM_SIZES, fft_sizes=FFT_SIZES,
                                                    msm.msm_core_plain(win, sc)))
         got = C.unpack_g1(out[0][None], out[1].reshape(1))[0]
         check(got == K._pippenger_msm(pts, scalars), f"K8 differs from the oracle at N={n}")
+    t0 = time.perf_counter()
+    for n in k7_sizes:
+        pts = [base, G1Point.inf(), step, -step, G1Point.inf()][:n]
+        while len(pts) < n:
+            pts.append(pts[-1] + step)
+        aff, inf = (t.to(dev) for t in C.pack_g1(pts))
+        err["expand_windows"] = max(err["expand_windows"], compare(
+            torch, f"K7 (N={n})", msm.expand_windows(aff, inf), msm.expand_windows_plain(aff, inf)))
+    print(f"kernel checks: K7 at N = {', '.join(map(str, k7_sizes))} (a partial warp of teams; "
+          f"points at infinity, P beside -P) byte-identical to its plain version on the card "
+          f"({time.perf_counter() - t0:.1f} s)")
     for n in fft_sizes:
         roots = list(K.compute_roots_of_unity(n))
         n_rows = 2 if n > 256 else 4
@@ -1074,6 +1202,7 @@ def blob_phase(torch, dev, card, setup, n_blobs=BLOBS) -> dict:
         host.restore()
         clock.restore()
         launches = dict(_build.launches)
+        k7_counts = dict(k7.by_shape)
         check(ok is True, "the block's blob batch must verify")
         check(launches["pairing_check"] - before["pairing_check"] == 1,
               f"the batch verify must make exactly one K4 launch: {launches}")
@@ -1102,9 +1231,11 @@ def blob_phase(torch, dev, card, setup, n_blobs=BLOBS) -> dict:
 
     err7 = k7.hold(msm.expand_windows_plain)
     err8 = k8.hold(msm.msm_core_plain)
-    err4 = k4.hold(pairing.pairing_check_plain)
-    print(f"check expand_windows, g1_msm, pairing_check: equal to their plain versions at "
-          f"every launch of the phase ({k7.count}, {k8.count} and {k4.count} calls; shapes "
+    err4 = k4.hold(k4_gt_plain(torch, pairing))
+    k4_tampered(torch, pairing, k4.calls[0][0], "the blob batch verify")
+    print(f"check expand_windows, g1_msm, pairing_check (verdicts and GT values): equal to "
+          f"their plain versions at every launch of the phase ({k7.count}, {k8.count} and "
+          f"{k4.count} calls; shapes "
           f"{sorted({str(k7.shapes(a)) for a, _ in k7.calls})}, "
           f"{sorted({str(k8.shapes(a)) for a, _ in k8.calls})})")
     print(f"time commit per blob (host included): {', '.join(f'{v:.2f}' for v in commit_ms)} "
@@ -1123,6 +1254,8 @@ def blob_phase(torch, dev, card, setup, n_blobs=BLOBS) -> dict:
     return {"launches": launches, "err": {"expand_windows": err7, "g1_msm": err8,
                                           "pairing_check": err4},
             "k7": big7, "k8": big8, "k8_small": small8, "blobs": blobs, "cs": cs,
+            "k7_calls": first_by_points(k7, k7_counts), "k4_call": k4.calls[0][0],
+            "k4_launches": launches["pairing_check"] - before["pairing_check"],
             "commit_ms": commit_ms, "prove_ms": prove_ms, "verify_ms": verify_ms,
             "verify_device_ms": device_ms}
 
@@ -1224,6 +1357,7 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
         vhost.restore()
         clock.restore()
         launches = dict(_build.launches)
+        k7_counts = dict(k7.by_shape)
         check(ok is True, "the sampled cells must verify")
         check(launches["pairing_check"] - before["pairing_check"] == 1,
               f"the cell batch must make exactly one K4 launch: {launches}")
@@ -1238,11 +1372,12 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
     t0 = time.perf_counter()
     err8 = k8_hold_every(torch, k8)
     t_hold8 = time.perf_counter() - t0
-    err4 = k4.hold(pairing.pairing_check_plain)
+    err4 = k4.hold(k4_gt_plain(torch, pairing))
     n = len(proofs)
     print(f"sampling: {n} cell proofs ({len(cols)} columns x {len(blobs)} blobs) verify as "
           f"one batch with one K4 launch, one changed element fails it; launches {launches}; "
-          f"the first K7/K4 call of every shape equal to its plain version; every one of the "
+          f"the first K7/K4 call of every shape equal to its plain version (K4's GT values "
+          f"too); every one of the "
           f"{k8.count} K8 calls held against its plain version (the first on each window "
           f"table replayed, all through a seeded weighted sum per table; "
           f"{sorted({str(k8.shapes(a)) for a, _ in k8.calls})}; {t_hold8:.1f} s)")
@@ -1265,6 +1400,8 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
     return {"launches": total, "err": {"fr_butterfly": err9, "expand_windows": err7,
                                        "g1_msm": err8, "pairing_check": err4},
             "k9": k9.calls[0][0], "k8_cell": k8_cell, "recover_ms": recover_ms,
+            "k7_calls": first_by_points(k7, k7_counts), "k4_call": k4.calls[0][0],
+            "k4_launches": launches["pairing_check"] - before["pairing_check"],
             "k9_path_ms": k9_ms, "proofs_ms": proofs_ms, "vcell_ms": vcell_ms}
 
 
@@ -1281,20 +1418,37 @@ def slice3_entries(torch, card, blob, das, err, launches) -> list:
         return products * L.IMAD_PER_FQ_MUL / IMAD_PER_S * 1e3
 
     out = []
+
+    def k7_bound(inf) -> tuple:
+        ops = fq_bound(msm.expand_windows_fq_products(inf))
+        byt = (96 + msm.N_WINDOWS * 144) * inf.shape[0] / HBM_BYTES_PER_S * 1e3
+        return max(ops, byt), "operations" if ops >= byt else "bytes"
+
     pts, inf = blob["k7"]
     k7_ms = cuda_ms(torch, lambda: msm.expand_windows(pts, inf))
     k7_plain = plain_ms(torch, lambda: msm.expand_windows_plain(pts, inf))
-    ops7 = fq_bound(msm.expand_windows_fq_products(inf))
-    bytes7 = (96 + msm.N_WINDOWS * 144) * pts.shape[0] / HBM_BYTES_PER_S * 1e3
+    bound7, by7 = k7_bound(inf)
+    shapes7 = {}
+    for path, calls in (("blob", blob["k7_calls"]), ("sampling", das["k7_calls"])):
+        for n, (args, count) in sorted(calls.items()):
+            if n not in shapes7:
+                ms = queued_ms(torch, lambda: msm.expand_windows(*args), 10)
+                shapes7[n] = {"points": n, "ms": ms, "bound_ms": k7_bound(args[1])[0],
+                              "launches": {}}
+            shapes7[n]["launches"][path] = count
     out.append({"name": "expand_windows", "route": "cuda",
                 "source": "consensus_specs_tpu_torch/csrc/msm.cu",
                 "replaces": "consensus_specs_tpu/ops/jax_bls/msm.py:38",
                 "launches": launches["expand_windows"], "max_abs_err": err["expand_windows"],
-                "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": max(ops7, bytes7),
-                "bound_by": "operations" if ops7 >= bytes7 else "bytes", "library_ms": None,
-                "points": int(pts.shape[0])})
+                "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": bound7, "bound_by": by7,
+                "library_ms": None, "points": int(pts.shape[0]),
+                "shapes": [shapes7[n] for n in sorted(shapes7)]})
     print(f"time expand_windows at N={pts.shape[0]}: {k7_ms:.3f} ms (plain {k7_plain:.1f} ms, "
-          f"bound {max(ops7, bytes7):.5f} ms: operations {ops7:.5f}, bytes {bytes7:.5f}) on {card}")
+          f"bound {bound7:.5f} ms, {by7}) on {card}")
+    print("time expand_windows at every launched shape (ms per call queued ahead; bound; "
+          "launches by path): " + "; ".join(
+              f"N={v['points']} {v['ms']:.4f} ({v['bound_ms']:.6f}; {v['launches']})"
+              for v in shapes7.values()) + f" on {card}")
     k8 = {}
     for tag, (win, sc) in (("commit", blob["k8"]), ("cell", das["k8_cell"]),
                            ("verify", blob["k8_small"])):
@@ -1659,8 +1813,7 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     check(bytes(ssz.hash_tree_root(replay)) == root,
           f"{tag}: the plain versions on the card give another post-state root")
     del replay
-    root_hl, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, state)
-    check(root_hl == root, f"{tag}: the post-state root on K5 differs from the hashlib root")
+    hashlib_roots.submit(f"the {tag} epoch's post-state (K5 and K18)", spec, ssz, state, root)
     err = {r.name: r.hold(plain[r.name]) for r in recorders}
 
     ms, cm = host.ms, card_clock.ms
@@ -1683,9 +1836,8 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     print(f"epoch {tag}: launches {launches}, engine {stats}, mesh engine {mesh_stats}, copies "
           f"{copies}; post-state root "
           f"{root.hex()} on K5 and K18 in {t_root:.2f} ms (pairs by K5 {root_stats['pairs_batched']}, by "
-          f"hashlib {root_stats['pairs_hashlib']}) equal to the hashlib root of a fresh "
-          f"deserialization ({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize) and to "
-          f"the plain versions' run on the card ({t_plain:.2f} ms); set-up: two forks "
+          f"hashlib {root_stats['pairs_hashlib']}) equal to the plain versions' run on the "
+          f"card ({t_plain:.2f} ms; the hashlib root: a worker's); set-up: two forks "
           f"{t_copy:.2f} s; every call of {list(kernels) + list(MESH_KERNELS)} and K18 held "
           f"against its plain version")
     sub_ms = {n: split[n] for n in subs}
@@ -1945,7 +2097,6 @@ def altair_block_phase(torch, dev, card, sks, pks, pre) -> dict:
     from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
     from consensus_specs_tpu_torch.parallel import mesh_merkle
     from consensus_specs_tpu_torch.utils import bls, ssz
-    from consensus_specs_tpu_torch.utils.ssz import merkle
 
     spec = build_spec("altair", "mainnet")
     bls.use_torch(dev)
@@ -2088,19 +2239,16 @@ def altair_block_phase(torch, dev, card, sks, pks, pre) -> dict:
           f"(_decompress_g2 {ms['_decompress_g2']:.2f}) + rest of process_block {rest:.2f} + "
           f"state-root check and block signature "
           f"{t_total - ms['process_slots'] - ms['process_block']:.2f} on {card}")
-    root_post, t_ser, t_hl = hashlib_root(ssz, merkle, spec.BeaconState, post)
-    check(root_post == bytes(block.state_root),
-          "altair: the post-state's hashlib root differs from the block's state_root")
-    print(f"altair post-state root: hashlib recompute equals the block's state_root "
-          f"({t_hl:.2f} s hashing, {t_ser:.2f} s serialize/deserialize)")
+    hashlib_roots.submit("the Altair block's post-state (the block's state_root)", spec, ssz,
+                         post, bytes(block.state_root))
     del post
     plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
              "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
-             "pairing_check": pairing.pairing_check_plain, "hash64": sha256.hash64_plain}
+             "pairing_check": k4_gt_plain(torch, pairing), "hash64": sha256.hash64_plain}
     err = {r.name: r.hold(plain[r.name]) for r in recorders}
-    print(f"altair: every K1-K4 call of the transition and the first K5 call of every row "
-          f"count held against their plain versions ({ {r.name: r.count for r in recorders} } "
-          f"calls)")
+    print(f"altair: every K1-K4 call of the transition (K4's GT values too) and the first K5 "
+          f"call of every row count held against their plain versions "
+          f"({ {r.name: r.count for r in recorders} } calls)")
 
     # -- the two rejections --------------------------------------------------------
     forged = block.copy()
@@ -2557,7 +2705,7 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
 
 
 # ---------------------------------------------------------------------------
-# --probe: K8 and K15 timed through their wrappers; the engine sweep
+# --probe: K7, K4, K8 and K15 timed through their wrappers; the engine sweep
 # ---------------------------------------------------------------------------
 
 PROBE_POINTS = 4096
@@ -2596,6 +2744,68 @@ def probe_k8(torch, dev) -> dict:
                     "host_ms": cuda_ms(torch, lambda: msm.msm_core(w, sc), 5)}
         if hasattr(msm, "msm_core_stage_ms"):
             out[tag]["stages_ms"] = msm.msm_core_stage_ms(w, sc)
+    return out
+
+
+PROBE_K7_POINTS = (2, 6, 48, 64, 4032, 4096)     # every K7 shape of phases 8-9
+PROBE_K4_SHAPES = (("block flush", 132, 1), ("per-lane batch", 262, 131),
+                   ("blob and cell batch verify", 2, 1))
+
+
+def probe_k7(torch, dev) -> dict:
+    """K7 at every shape phases 8-9 launch, on seeded points P_i = A + i B
+    (the first at infinity): device ms per call queued ahead; the
+    6-point call held against the plain version first."""
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import msm
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR, G1Point
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    a, b = (G1_GENERATOR.mult(v) for v in field_elements(b"probe-k7", 2, K.BLS_MODULUS))
+    pts, p = [G1Point.inf()], a
+    while len(pts) < max(PROBE_K7_POINTS):
+        pts.append(p)
+        p = p + b
+    out = {}
+    for n in PROBE_K7_POINTS:
+        aff, inf = (t.to(dev) for t in C.pack_g1(pts[:n]))
+        if n == 6:
+            compare(torch, "K7 (probe, N = 6)", msm.expand_windows(aff, inf),
+                    msm.expand_windows_plain(aff, inf))
+        out[n] = queued_ms(torch, lambda: msm.expand_windows(aff, inf), 10)
+    return out
+
+
+def probe_k4(torch, dev) -> dict:
+    """K4 at the paths' shapes (pairs, groups) on seeded pairs ([a_i] G1,
+    [b_i] G2) whose groups multiply to one, so every verdict is True:
+    device ms per call queued ahead; the 2-pair call held against the
+    plain version first."""
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR, G2_GENERATOR
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    from consensus_specs_tpu_torch.ops.torch_bls import pairing
+    r = 2 ** 64
+    xs = field_elements(b"probe-k4", 8, r)
+    g1 = [G1_GENERATOR.mult(x) for x in xs]
+    g2 = [G2_GENERATOR.mult(x) for x in xs]
+    out = {}
+    for tag, n, groups in PROBE_K4_SHAPES:
+        ps, qs = [], []
+        for i in range(n // 2):          # e([x]G1, [y]G2) e(-[y]G1, [x]G2) = 1
+            x, y = i % 8, (i + 3) % 8
+            ps += [g1[x], -g1[y]]
+            qs += [g2[y], g2[x]]
+        if n % 2:
+            ps.append(g1[0])
+            qs.append(g2[0])
+        per = n // groups
+        off = torch.tensor([min(g * per, n) for g in range(groups)] + [n], dtype=torch.int32)
+        args = (C.pack_g1(ps)[0].to(dev), C.pack_g2(qs)[0].to(dev),
+                torch.zeros(n, dtype=torch.bool, device=dev), off)
+        if n == 2:
+            compare(torch, "K4 (probe, 2 pairs)", pairing.pairing_check(*args),
+                    pairing.pairing_check_plain(*args))
+        out[tag] = {"pairs": n, "groups": groups,
+                    "queued_ms": queued_ms(torch, lambda: pairing.pairing_check(*args), 5)}
     return out
 
 
@@ -2716,7 +2926,12 @@ def probe_main(torch, card: str, root: str, runs: int) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     result = {"root": root, "card": card, "build_s": time.perf_counter() - t0,
+              "k7": probe_k7(torch, dev), "k4": probe_k4(torch, dev),
               "k8": probe_k8(torch, dev), "k15": probe_k15(torch, dev)}
+    for n, ms in result["k7"].items():
+        print(f"K7 N={n}: {ms:.4f} ms per call queued ahead on {card}")
+    for tag, v in result["k4"].items():
+        print(f"K4 {tag}: {json.dumps(v)} on {card}")
     for tag, v in result["k8"].items():
         print(f"K8 {tag}: {json.dumps(v)} on {card}")
     for name, ms in result["k15"].items():
@@ -2733,7 +2948,7 @@ def main(argv=None) -> int:
     ap.add_argument("--validators", type=int, default=VALIDATORS,
                     help="active validators of the phase0 and Altair states (default 2^20)")
     ap.add_argument("--probe", action="store_true",
-                    help="time K8 and K15 through their wrappers instead of the phases")
+                    help="time K7, K4, K8 and K15 through their wrappers instead of the phases")
     ap.add_argument("--root", default=None,
                     help="with --probe: a checkout of the port inside this one to measure")
     ap.add_argument("--sweep", type=int, default=0, metavar="RUNS",
@@ -2845,10 +3060,13 @@ def main(argv=None) -> int:
     args = (C.pack_g1(Pp)[0].to(cu), C.pack_g2(Qp)[0].to(cu), dg.to(cu), off)
     ko = pairing.pairing_check(*args)
     compare(torch, "K4", ko, pairing.pairing_check_plain(*args))
+    compare(torch, "K4 GT values", pairing.pairing_check_gt(*args),
+            pairing.pairing_check_gt_plain(*args))
     want = [multi_pairing_check(list(zip(Pp[:2], Qp[:2]))), multi_pairing_check([(Pp[2], Qp[2])])]
     check(ko.cpu().tolist() == want == [True, False], f"K4 differs from the oracle: {ko.tolist()}")
     print("kernel checks (small inputs): K1-K4 byte-identical to their plain versions "
-          "on the card and to the python oracle (tolerance 0: integer outputs)")
+          "on the card (K4's GT values too) and to the python oracle (tolerance 0: integer "
+          "outputs)")
 
     lap("phase 2")
 
@@ -2956,7 +3174,7 @@ def main(argv=None) -> int:
     plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
              "g2_scale_sum": points.g2_scale_sum_plain,
              "hash_to_g2": htc.hash_to_g2_plain,
-             "pairing_check": pairing.pairing_check_plain}
+             "pairing_check": pairing.pairing_check_gt_plain}
     products = {"g1_aggregate_scale": points.g1_aggregate_scale_fq_products,
                 "g2_scale_sum": points.g2_scale_sum_fq_products,
                 "hash_to_g2": htc.hash_to_g2_fq_products,
@@ -2986,6 +3204,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if which == "flush":
                 p_ms = (time.perf_counter() - t0) * 1e3
+            if name == "pairing_check":
+                compare(torch, f"K4 GT values ({which}, block shapes)",
+                        pairing.pairing_check_gt(*args), want)
+                want = want[0]
             err = max(err, compare(torch, f"{name} ({which}, block shapes)", got, want))
             shapes = [tuple(t.shape) for t in args if isinstance(t, torch.Tensor)]
             print(f"check {name} ({which}): equal to its plain version at shapes {shapes}")
@@ -3001,6 +3223,7 @@ def main(argv=None) -> int:
             "library_ms": None, "fq_products": fq})
         print(f"time {name}: {k_ms:.3f} ms (plain {p_ms:.1f} ms, bound {b_ms:.5f} ms "
               f"from {fq} Fq products) on {card}")
+    k4_tampered(torch, pairing, recorded[("flush", "pairing_check")], "the block flush")
 
     def flush_once():
         b = bls.DeferredBatch()
@@ -3097,6 +3320,12 @@ def main(argv=None) -> int:
     k4["max_abs_err"] = max(k4["max_abs_err"], blob["err"]["pairing_check"],
                             das["err"]["pairing_check"])
     k4["slice3_launches"] = s3_launches["pairing_check"]
+    k4["shapes"] = k4_shapes(torch, card, pairing, {
+        "block flush": (recorded[("flush", "pairing_check")], launches["pairing_check"]),
+        "per-lane batch": (recorded[("lanes", "pairing_check")],
+                           lane_launches["pairing_check"]),
+        "blob batch verify": (blob["k4_call"], blob["k4_launches"]),
+        "cell batch verify": (das["k4_call"], das["k4_launches"])})
     kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
 
     lap("phase 9")
@@ -3143,6 +3372,11 @@ def main(argv=None) -> int:
 
     lap("phase 16 (K15-K18 timed)")
 
+    # ---- the hashlib recomputes of phases 6, 10, 13 and 14 ----------------------
+    hashlib_roots.finish()
+
+    lap("hashlib roots (waited for)")
+
     # ---- 16. result lines ----------------------------------------------------
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3153,4 +3387,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        hashlib_roots.close()

@@ -11,6 +11,7 @@ source and of the generated constants header, so an edit rebuilds and a
 stale library is never loaded.  Nothing here runs at import.
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -141,6 +142,20 @@ def sha256_constants() -> str:
                       arr("SHA_PAD_KW", S.PAD_KW)]) + "\n"
 
 
+# The sources pairing_programs() generates K4's tables from: the digest
+# hashes them, so that loading a built library never traces the programs.
+PROGRAM_SOURCES = ("ops/torch_bls/team_programs.py", "ops/torch_bls/limbs.py",
+                   "ops/bls12_381/fields.py")
+
+
+@functools.lru_cache(maxsize=None)
+def pairing_programs() -> str:
+    """K4's team programs as tables (``ops/torch_bls/team_programs.py``;
+    traced and scheduled once per process, ~3 s)."""
+    from .ops.torch_bls import team_programs
+    return team_programs.header()
+
+
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
@@ -153,6 +168,9 @@ def _digest() -> str:
     h.update(constants_header().encode())
     h.update(tower_constants().encode())
     h.update(sha256_constants().encode())
+    for rel in PROGRAM_SOURCES:
+        h.update(rel.encode())
+        h.update((PKG / rel).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -179,6 +197,7 @@ def build_all() -> dict:
     (gen / "bls_constants.cuh").write_text(constants_header())
     (gen / "tower_constants.cuh").write_text(tower_constants())
     (gen / "sha256_constants.cuh").write_text(sha256_constants())
+    (gen / "pairing_programs.cuh").write_text(pairing_programs())
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = {}
@@ -211,8 +230,7 @@ _SIGS = {
                            ctypes.c_int, _VP],
     "g2_scale_sum": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
     "hash_to_g2": [_VP, _VP, _VP, ctypes.c_int, _VP],
-    "pairing_check": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int,
-                      ctypes.c_int, _VP],
+    "pairing_check": [_VP] * 7 + [ctypes.c_int] * 3 + [_VP],
     "hash64": [_VP, _VP, ctypes.c_int, _VP],
     "sha256_blocks": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP],
     "expand_windows": [_VP, _VP, _VP, ctypes.c_int, _VP],

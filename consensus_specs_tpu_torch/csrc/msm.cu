@@ -11,8 +11,15 @@
 // integer multiply-adds (Fq products at 588 each: a doubling 9, an
 // addition 14), not bytes: a window entry is 144 B against 14 products.
 //
-// K7 gives each point one thread that doubles it 8 times per window and
-// writes the 32 projective multiples window-major, (32, N, 3, 12) words.
+// K7 is a chain of 248 complete doublings per point, which no number of
+// points shortens: its time is the chain's latency.  A team of K7_TEAM = 4
+// threads makes each doubling (team_dbl, team.cuh: two waves of four
+// products), eight teams a warp; the running point stays in shared memory,
+// and each warp writes its eight points' window entry (8 x 36 contiguous
+// words) as one coalesced store of 32 lanes.  The projective output is the
+// one pt_dbl computes (the same formulas, every value fully reduced), so
+// the table is byte-identical to one thread's chain of pt_dbl.  A team of
+// four, not K8's six: team_dbl has four products a wave.
 //
 // K8 is Pippenger's bucket method over that table.  Every (window, point)
 // lane shares one set of 255 buckets (the table already carries the
@@ -58,12 +65,16 @@
 // records an event before stage 1 and after stages 1, 2, 3, level 0, the
 // other levels, 5 and 6, for per-stage times.
 #include <cuda_runtime.h>
-#include "points.cuh"
+#include "team.cuh"
 #include "fq_inv.cuh"
 
 #define N_WINDOWS 32
 #define WINDOW_BITS 8
-#define K7_THREADS 64
+#define K7_TEAM 4              // threads per doubling
+#define K7_TEAMS_PER_WARP 8
+#define K7_WARPS 4
+#define K7_THREADS (32 * K7_WARPS)
+#define K7_POINTS (K7_TEAMS_PER_WARP * K7_WARPS)   // points per block
 #define N_BUCKETS 256          // digit values; bucket 0 stays empty
 #define DIGIT_BITS 8
 #define HIST_THREADS 256       // == N_BUCKETS: one thread per digit in a block
@@ -87,18 +98,36 @@ static_assert(HIST_THREADS == N_BUCKETS, "one histogram slot per thread");
 __global__ void __launch_bounds__(K7_THREADS)
 k_expand_windows(const uint32_t* __restrict__ pts, const uint8_t* __restrict__ inf,
                  uint32_t* __restrict__ out, int n) {
-  const int i = blockIdx.x * K7_THREADS + threadIdx.x;
-  if (i >= n) return;
-  Pt<Fq> p;
-  if (inf[i]) {
-    pt_identity(p);
-  } else {
-    g1_load_affine(p, pts + (size_t)i * 2 * NW);
+  __shared__ Pt<Fq> cur[K7_POINTS];
+  __shared__ Fq slot[K7_POINTS][K7_TEAM];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tw = lane / K7_TEAM, k = lane - tw * K7_TEAM;
+  const int team = warp * K7_TEAMS_PER_WARP + tw;
+  const int first = blockIdx.x * K7_POINTS + warp * K7_TEAMS_PER_WARP;   // the warp's first point
+  const int live = min(K7_TEAMS_PER_WARP, n - first);                    // its points
+  if (live <= 0) return;                                                  // the whole warp
+  const unsigned all = 0xffffffffu;
+  uint32_t* mine = (uint32_t*)&cur[warp * K7_TEAMS_PER_WARP];            // 8 x 36 words
+  // the warp's affine points, 24 contiguous words each, into x and y
+  for (int j = lane; j < live * 2 * NW; j += 32)
+    mine[(j / (2 * NW)) * 3 * NW + j % (2 * NW)] = pts[(size_t)first * 2 * NW + j];
+  __syncwarp(all);
+  if (k == 0) {
+    Pt<Fq>& p = cur[team];
+    if (tw >= live || inf[first + tw]) {
+      pt_identity(p);                  // a team past the end doubles the identity, unstored
+    } else {
+      fq_set(p.z, FQ_ONE);
+    }
   }
+  __syncwarp(all);
+  const int words = live * 3 * NW;
   for (int w = 0; w < N_WINDOWS; w++) {
-    g1_store_proj(out + ((size_t)w * n + i) * 3 * NW, p);
+    uint32_t* dst = out + ((size_t)w * n + first) * 3 * NW;
+    for (int j = lane; j < words; j += 32) dst[j] = mine[j];
+    __syncwarp(all);
     if (w + 1 < N_WINDOWS) {
-      for (int b = 0; b < WINDOW_BITS; b++) pt_dbl(p, p);
+      for (int b = 0; b < WINDOW_BITS; b++) team_dbl(&cur[team], &cur[team], slot[team], k, all);
     }
   }
 }
@@ -150,120 +179,6 @@ static int msm_plan(int n, MsmPlan& p) {
   return 1;
 }
 
-// ---------------------------------------------------------------- teams
-// A point operation by a team of TEAM threads of one warp (k: the
-// thread's place in its team, mask: the team's lanes): the formulas of
-// points.cuh (RCB Algorithms 7 and 9) with their general products in two
-// waves, one product a thread, and their products by b3 = 12 as four
-// additions.  Every value is the canonical one pt_add / pt_dbl compute.
-// One thread's complete addition is 14 dependent CIOS products; a team's
-// is 2.  p, q, r: points anywhere (r may alias p or q); slot: TEAM Fq of
-// shared memory.
-
-DEV void fq_times12(Fq& r, const Fq& a) {
-  Fq t;
-  fq_add(t, a, a);
-  fq_add(t, t, a);
-  fq_add(t, t, t);
-  fq_add(r, t, t);
-}
-
-DEV const Fq& coord(const Pt<Fq>* p, int i) { return i == 0 ? p->x : i == 1 ? p->y : p->z; }
-
-// wave 2 operands of the addition from wave 1's products t0, t1, t2 and
-// m1 = (x1 + y1)(x2 + y2), m2 = (y1 + z1)(y2 + z2), m3 = (x1 + z1)(x2 + z2):
-// 0 t3 = m1 - t0 - t1, 1 t4 = m2 - t1 - t2, 2 y3 = 12 (m3 - t0 - t2),
-// 3 x3 = 3 t0, 4 z3 = t1 + 12 t2, 5 u = t1 - 12 t2
-DEV void add_operand(Fq& r, const Fq* slot, int id) {
-  Fq t;
-  switch (id) {
-    case 0:
-      fq_sub(r, slot[3], slot[0]);
-      fq_sub(r, r, slot[1]);
-      break;
-    case 1:
-      fq_sub(r, slot[4], slot[1]);
-      fq_sub(r, r, slot[2]);
-      break;
-    case 2:
-      fq_sub(t, slot[5], slot[0]);
-      fq_sub(t, t, slot[2]);
-      fq_times12(r, t);
-      break;
-    case 3:
-      fq_add(t, slot[0], slot[0]);
-      fq_add(r, t, slot[0]);
-      break;
-    case 4:
-      fq_times12(t, slot[2]);
-      fq_add(r, slot[1], t);
-      break;
-    default:
-      fq_times12(t, slot[2]);
-      fq_sub(r, slot[1], t);
-  }
-}
-
-__device__ void team_add(Pt<Fq>* r, const Pt<Fq>* p, const Pt<Fq>* q, Fq* slot, int k,
-                         unsigned mask) {
-  Fq a, b;
-  if (k < 3) {
-    fq_set(a, coord(p, k));
-    fq_set(b, coord(q, k));
-  } else {
-    const int i = k == 4 ? 1 : 0, j = k == 3 ? 1 : 2;
-    fq_add(a, coord(p, i), coord(p, j));
-    fq_add(b, coord(q, i), coord(q, j));
-  }
-  fq_mul(slot[k], a, b);
-  __syncwarp(mask);
-  // p1 = t3 u, p2 = t4 y3, p3 = u z3, p4 = y3 x3, p5 = z3 t4, p6 = x3 t3
-  add_operand(a, slot, k == 0 ? 0 : k == 1 ? 1 : k == 2 ? 5 : k == 3 ? 2 : k == 4 ? 4 : 3);
-  add_operand(b, slot, k == 0 ? 5 : k == 1 ? 2 : k == 2 ? 4 : k == 3 ? 3 : k == 4 ? 1 : 0);
-  __syncwarp(mask);
-  fq_mul(slot[k], a, b);
-  __syncwarp(mask);
-  if (k == 0) fq_sub(r->x, slot[0], slot[1]);
-  if (k == 1) fq_add(r->y, slot[2], slot[3]);
-  if (k == 2) fq_add(r->z, slot[4], slot[5]);
-  __syncwarp(mask);
-}
-
-// wave 1: t0 = y^2, t1 = y z, xy = x y, zz = z^2; with t2 = 12 zz,
-// wave 2: m1 = t2 z3, m2 = t1 z3, m3 = w y3, m4 = w xy for z3 = 8 t0,
-// y3 = t0 + t2, w = t0 - 3 t2; r = (2 m4, m1 + m3, m2)
-__device__ void team_dbl(Pt<Fq>* r, const Pt<Fq>* p, Fq* slot, int k, unsigned mask) {
-  Fq a, b;
-  if (k < 4) {
-    fq_set(a, k == 2 ? p->x : k == 3 ? p->z : p->y);
-    fq_set(b, k == 0 ? p->y : k == 1 || k == 3 ? p->z : p->y);
-    fq_mul(slot[k], a, b);
-  }
-  __syncwarp(mask);
-  if (k < 4) {
-    Fq t2, t;
-    fq_times12(t2, slot[3]);
-    if (k < 2) {
-      fq_add(b, slot[0], slot[0]);
-      fq_add(b, b, b);
-      fq_add(b, b, b);                 // z3
-      fq_set(a, k == 0 ? t2 : slot[1]);
-    } else {
-      fq_add(t, t2, t2);
-      fq_add(t, t, t2);
-      fq_sub(a, slot[0], t);           // w
-      if (k == 2) fq_add(b, slot[0], t2); else fq_set(b, slot[2]);
-    }
-  }
-  __syncwarp(mask);
-  if (k < 4) fq_mul(slot[k], a, b);
-  __syncwarp(mask);
-  if (k == 0) fq_add(r->x, slot[3], slot[3]);
-  if (k == 1) fq_add(r->y, slot[0], slot[2]);
-  if (k == 2) fq_set(r->z, slot[1]);
-  __syncwarp(mask);
-}
-
 // this thread's team within its warp: place k, lanes mask, team index in
 // the block (-1 for the two lanes left over in each warp)
 DEV int team_of(int& k, unsigned& mask) {
@@ -271,10 +186,6 @@ DEV int team_of(int& k, unsigned& mask) {
   k = lane - tw * TEAM;
   mask = ((1u << TEAM) - 1u) << (tw * TEAM);
   return tw < TEAMS_PER_WARP ? (int)(threadIdx.x >> 5) * TEAMS_PER_WARP + tw : -1;
-}
-
-DEV void copy_coord(Pt<Fq>* r, const Pt<Fq>* p, int k) {
-  if (k < 3) fq_set(k == 0 ? r->x : k == 1 ? r->y : r->z, coord(p, k));
 }
 
 // the bucket d of output j of a level: off[d] <= j < off[d + 1], for
@@ -516,7 +427,7 @@ __global__ void k_msm_normalize(const uint32_t* __restrict__ sum, uint32_t* __re
 
 extern "C" int expand_windows(const void* pts, const void* inf, void* out, int n,
                               void* stream) {
-  k_expand_windows<<<(n + K7_THREADS - 1) / K7_THREADS, K7_THREADS, 0,
+  k_expand_windows<<<(n + K7_POINTS - 1) / K7_POINTS, K7_THREADS, 0,
                      (cudaStream_t)stream>>>((const uint32_t*)pts, (const uint8_t*)inf,
                                              (uint32_t*)out, n);
   return (int)cudaGetLastError();

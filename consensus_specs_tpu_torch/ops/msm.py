@@ -90,9 +90,13 @@ def expand_windows(pts, inf):
     ``inf``: (N,) bool infinity flags.  Returns the (32, N, 3, 12) int32
     projective window multiples [2^(8w)] P_i, window-major.
 
-    CUDA: one thread per point, 248 complete doublings, 32 stores.  Bound:
-    integer multiply-adds (``expand_windows_fq_products``); each point
-    is read once (96 B) and written 32 times (4,608 B)."""
+    CUDA: a team of 4 threads per point makes each of its 248 complete
+    doublings (two waves of four products, ``csrc/team.cuh`` team_dbl),
+    8 teams a warp; each warp writes its points' window entries as one
+    coalesced store per window.  Bound: integer multiply-adds
+    (``expand_windows_fq_products``); each point is read once (96 B) and
+    written 32 times (4,608 B); the chain of 496 dependent products holds
+    it at any N."""
     dev = _build.same_device(pts, inf)
     n = pts.shape[0]
     _build.check(pts, "pts", torch.int32, (n, 2, 12))
@@ -136,7 +140,7 @@ def msm_core_fq_products(windows, scalars) -> int:
     gaps = [a - b for a, b in zip(digits, digits[1:] + [0])]
     adds = len(live) - len(digits) + 2 * max(len(digits) - 1, 0)
     n = adds * PT.G1_ADD + sum(PT._ladder_fq_products(g, PT.G1_DBL, PT.G1_ADD) for g in gaps)
-    return n + L.INV_MULS + 2
+    return n + 2
 
 
 def msm_core_ladder_fq_products(windows, scalars) -> int:
@@ -148,7 +152,7 @@ def msm_core_ladder_fq_products(windows, scalars) -> int:
     d = _digits(scalars).cpu()[:, finite]
     live = d[d != 0].tolist()
     n = sum(PT._ladder_fq_products(k, PT.G1_DBL, PT.G1_ADD) for k in live)
-    return n + max(len(live) - 1, 0) * PT.G1_ADD + L.INV_MULS + 2
+    return n + max(len(live) - 1, 0) * PT.G1_ADD + 2
 
 
 class MsmPlan(NamedTuple):

@@ -123,7 +123,7 @@ def hash_to_g2_fq_products(u) -> int:
     additions, a doubling, three psi maps) and the affine result."""
     ones = bin(-X_PARAM).count("1") - 1
     sswu_ = (2 + 3 + 2 + T.F2_INV + 3 + 5 + 2 + L.LEGENDRE_MULS
-             + 5 + 2 * L.SQRT_MULS + L.INV_MULS + 2)
+             + 5 + 2 * L.SQRT_MULS + 2)
     iso = 11 * T.F2_MUL + T.F2_MUL + T.F2_INV + 5 * T.F2_MUL
     mul_x = len(_ABS_X_BITS) * PT.G2_DBL + ones * PT.G2_ADD
     cof = 2 * mul_x + 5 * PT.G2_ADD + PT.G2_DBL + 3 * 2 * T.F2_MUL

@@ -300,8 +300,10 @@ def legendre_is_qr(a):
     return eq(pow_fixed(a, LEGENDRE_EXP), one_like(a)) | is_zero(a)
 
 
-INV_MULS, SQRT_MULS, LEGENDRE_MULS = (pow_muls(INV_EXP), pow_muls(SQRT_EXP),
-                                     pow_muls(LEGENDRE_EXP))
+# Fq products of the fixed powers in the kernels' bounds.  An inversion
+# counts none: the binary extended Euclid (``csrc/fq_inv.cuh``) makes it
+# with additions and shifts.
+SQRT_MULS, LEGENDRE_MULS = pow_muls(SQRT_EXP), pow_muls(LEGENDRE_EXP)
 
 
 def parity(a):

@@ -11,9 +11,10 @@ the check may use 3h); the is-one test.  Degenerate pairs contribute 1.
 
 K4 ``pairing_check`` replaces ``pairing.py:276,282,293,300``
 ``_j_miller_*``, ``:307`` ``_j_f12_mul``, ``:316,334`` the easy part,
-``:349,355,360,366,374`` the hard part and the entry programs ``:452``
-``staged_product_pairing_check``, ``:496`` ``staged_pairing_check`` and
-``:242`` ``pairing_check``.
+``:349,355,360,366,374`` the hard part, ``:486-491`` the product tree
+and the entry programs ``:452`` ``staged_product_pairing_check``,
+``:496`` ``staged_pairing_check`` and ``:242`` ``pairing_check``.  Its
+Fq12 steps run as team programs (``team_programs.py``).
 """
 import torch
 
@@ -107,8 +108,10 @@ def _pow_x(f):
     return acc
 
 
-def final_exp_is_one(f):
-    """True iff f^((p^12-1)/r) == 1, via the 3h decomposition."""
+def final_exp(f):
+    """f^(3 (p^12 - 1) / r), the easy part and the 3h chain: the GT value
+    that ``final_exp_is_one`` tests (the cube of the pairing's final
+    exponentiation)."""
     g = T.f12_mul(T.f12_conj(f), T.f12_inv(f))
     g = T.f12_mul(T.f12_frobenius(T.f12_frobenius(g)), g)
     t1 = T.f12_conj(T.f12_mul(_pow_x(g), g))                   # g^(x-1)
@@ -117,8 +120,12 @@ def final_exp_is_one(f):
     xx = T.f12_conj(_pow_x(T.f12_conj(_pow_x(t3))))            # t3^(x^2)
     t4 = T.f12_mul(T.f12_mul(xx, T.f12_frobenius(T.f12_frobenius(t3))),
                    T.f12_conj(t3))
-    out = T.f12_mul(t4, T.f12_mul(T.f12_cyclotomic_sqr(g), g))
-    return T.f12_is_one(out)
+    return T.f12_mul(t4, T.f12_mul(T.f12_cyclotomic_sqr(g), g))
+
+
+def final_exp_is_one(f):
+    """True iff f^((p^12-1)/r) == 1, via the 3h decomposition."""
+    return T.f12_is_one(final_exp(f))
 
 
 def group_product(f, offsets):
@@ -135,14 +142,22 @@ def group_product(f, offsets):
 
 
 @torch.inference_mode()
-def pairing_check_plain(p, q, degenerate, offsets):
-    """Plain PyTorch version of K4 (any device; ``offsets`` on any device)."""
+def pairing_check_gt_plain(p, q, degenerate, offsets):
+    """Plain PyTorch version of :func:`pairing_check_gt` (any device)."""
     G = offsets.shape[0] - 1
     if p.shape[0] == 0:
-        return torch.ones((G,), dtype=torch.bool, device=p.device)
-    pp, qq = L.unpack(p), L.unpack(q)                   # (n,2,24), (n,2,2,24)
-    f = miller_loop(pp[:, 0], pp[:, 1], qq[:, 0], qq[:, 1], degenerate)
-    return final_exp_is_one(group_product(f, offsets))
+        gt = T.f12_one_like(torch.zeros((G, 2, 3, 2, L.NLIMB), dtype=torch.int64,
+                                        device=p.device))
+    else:
+        pp, qq = L.unpack(p), L.unpack(q)               # (n,2,24), (n,2,2,24)
+        f = miller_loop(pp[:, 0], pp[:, 1], qq[:, 0], qq[:, 1], degenerate)
+        gt = final_exp(group_product(f, offsets))
+    return T.f12_is_one(gt), L.pack(gt).reshape(G, 12, 12)
+
+
+def pairing_check_plain(p, q, degenerate, offsets):
+    """Plain PyTorch version of K4 (any device; ``offsets`` on any device)."""
+    return pairing_check_gt_plain(p, q, degenerate, offsets)[0]
 
 
 # Fq products of one Miller step (for the kernel's bound): the doubling
@@ -180,6 +195,13 @@ def pairing_check_fq_products(p, q, degenerate, offsets) -> int:
     return n
 
 
+def fold_levels(offsets) -> int:
+    """Levels of K4's product tree: ceil(log2) of the largest group."""
+    sizes = offsets[1:] - offsets[:-1]
+    largest = int(sizes.max()) if sizes.numel() else 0
+    return max(largest - 1, 0).bit_length()
+
+
 def pairing_check(p, q, degenerate, offsets):
     """K4.  Flat pairs: ``p`` (n, 2, 12) int32 affine G1, ``q`` (n, 2, 2,
     12) int32 affine G2, ``degenerate`` (n,) bool (the pair contributes
@@ -188,13 +210,27 @@ def pairing_check(p, q, degenerate, offsets):
     pairs' device, so no launch waits on a read-back).  Returns (G,)
     bool: prod e(P_i, Q_i) == 1 per group.
 
-    CUDA: two launches.  One thread per pair runs the Miller loop into
-    an (n, 12, 12) scratch; one thread per group multiplies its pairs'
-    values and runs the final exponentiation.  An Fq12 value is 144
-    32-bit words, so the kernel spills; the Fq12 multiply and square
-    and the ladders are out of line to bound code size.  Bound: integer
-    multiply-adds (``pairing_check_fq_products``); at a block's 132 pairs (RLC) or 128 x 2 (per lane)
-    the card runs 132-256 threads, so latency bounds it."""
+    CUDA (``csrc/pairing.cu``): every Fq12 step is a team program run by
+    a block of ``team_programs.TEAM`` threads.  One team per pair runs
+    its Miller loop into an (n, 12, 12) scratch; ``fold_levels(offsets)``
+    launches multiply the values in a log-depth tree per group; one team
+    per group runs the final exponentiation (one Fq inversion, by the
+    binary extended Euclid).  Bound: integer multiply-adds
+    (``pairing_check_fq_products``); a group's check is a chain of ~700
+    Fq12 steps, so latency holds it: each step's products run at once."""
+    return _pairing_check(p, q, degenerate, offsets, False)
+
+
+def pairing_check_gt(p, q, degenerate, offsets):
+    """K4 with each group's GT value: (verdicts (G,) bool, (G, 12, 12)
+    int32 words of f^(3 (p^12 - 1) / r) for the product f of the group's
+    Miller values, the value ``pairing_check`` tests for one).  One launch
+    of the same kernel, which also writes the values; for holding K4
+    byte for byte."""
+    return _pairing_check(p, q, degenerate, offsets, True)
+
+
+def _pairing_check(p, q, degenerate, offsets, with_gt):
     dev = _build.same_device(p, q, degenerate)
     n = p.shape[0]
     _build.check(p, "p", torch.int32, (n, 2, 12))
@@ -209,10 +245,12 @@ def pairing_check(p, q, degenerate, offsets):
             or bool((offsets[1:] < offsets[:-1]).any())):
         raise ValueError("offsets must rise from 0 to the number of pairs")
     if dev.type == "cpu":
-        return pairing_check_plain(p, q, degenerate, offsets)
+        out = pairing_check_gt_plain(p, q, degenerate, offsets)
+        return out if with_gt else out[0]
     out = torch.empty((G,), dtype=torch.bool, device=dev)
+    gt = torch.empty((G, 12, 12), dtype=torch.int32, device=dev) if with_gt else None
     scratch = torch.empty((max(n, 1), 12, 12), dtype=torch.int32, device=dev)
     if G:
         _build.launch("pairing_check", p, q, degenerate, _build.to_card(offsets, dev),
-                      scratch, out, n, G)
-    return out
+                      scratch, out, gt, n, G, fold_levels(offsets))
+    return (out, gt) if with_gt else out

@@ -31,9 +31,10 @@ from . import tower as T
 SCALAR_WORDS = 4          # 128-bit RLC scalars as 4 little-endian words
 
 # Fq products per G1 point operation (for the kernels' bounds), a = 0:
-# RCB complete addition 12 + 2 by 3b, mixed addition (one affine input)
-# 11 + 2, doubling 9; a G2 operation takes as many Fq2 products.
-G1_ADD, G1_MADD, G1_DBL = 14, 13, 9
+# RCB complete addition 12, mixed addition (one affine input) 11,
+# doubling 8 (the products by 3b = 12 are additions); a G2 operation
+# takes as many Fq2 products (3b = 12 (1 + i) is additions too).
+G1_ADD, G1_MADD, G1_DBL = 12, 11, 8
 G2_ADD, G2_MADD, G2_DBL = (k * T.F2_MUL for k in (G1_ADD, G1_MADD, G1_DBL))
 
 
@@ -209,12 +210,12 @@ def g1_aggregate_scale_plain(pk, counts, scalars=None):
 def g1_aggregate_scale_fq_products(pk, counts, scalars=None) -> int:
     """Fq products K1's function needs on these inputs: per row, count - 1
     mixed additions of its affine keys, then the scalar's ladder (whose
-    base, the sum, is projective: full additions), then an inversion and
-    two products to make it affine."""
+    base, the sum, is projective: full additions), then an inversion (no
+    products, see ``limbs.SQRT_MULS``) and two products to make it affine."""
     n = sum(max(int(k) - 1, 0) for k in counts.tolist()) * G1_MADD
     for k in (scalar_ints(scalars) if scalars is not None else ()):
         n += _ladder_fq_products(k, G1_DBL, G1_ADD)
-    return n + len(counts) * (L.INV_MULS + 2)
+    return n + len(counts) * 2
 
 
 def g1_aggregate_scale(pk, counts, scalars=None):

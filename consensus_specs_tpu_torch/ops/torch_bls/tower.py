@@ -25,9 +25,11 @@ from . import limbs as L
 # Fq2 (3; a square 2); Fq6 by six Fq2 products; Fq12 by three Fq6
 # products (a square two); a product by a sparse line c0 + c3 w^3 +
 # c5 w^5 takes 13 Fq2 products; Granger-Scott cyclotomic squaring nine
-# Fq2 squares; a Frobenius map five Fq2 products by constants.
+# Fq2 squares; a Frobenius map five Fq2 products by constants; an
+# inversion its norm's products (the Fq inversion none, see
+# ``limbs.SQRT_MULS``).
 F2_MUL, F2_SQR = 3, 2
-F2_INV = 2 * 2 + L.INV_MULS
+F2_INV = 2 * 2
 F6_MUL = 6 * F2_MUL
 F12_MUL, F12_SQR, F12_SPARSE_MUL = 3 * F6_MUL, 2 * F6_MUL, 13 * F2_MUL
 CYC_SQR = 9 * F2_SQR

@@ -69,10 +69,11 @@ def _k_calls():
     return [lambda: points.g1_aggregate_scale(pk, cnt, sc),
             lambda: points.g2_scale_sum(sig, flag, sc),
             lambda: htc.hash_to_g2(u),
-            lambda: pairing.pairing_check(pk[0], sig, flag, off)]
+            lambda: pairing.pairing_check(pk[0], sig, flag, off),
+            lambda: pairing.pairing_check_gt(pk[0], sig, flag, off)]
 
 
-@pytest.mark.parametrize("k", range(4))
+@pytest.mark.parametrize("k", range(5))
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch, k):
     """A wrapper handed CUDA tensors launches its kernel or raises: with the
     device reported as CUDA on a host without one it must raise, and the
@@ -80,7 +81,8 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch, k):
     def no_plain(*a, **kw):
         raise AssertionError("plain version used for CUDA tensors")
     for mod, name in ((points, "g1_aggregate_scale_plain"), (points, "g2_scale_sum_plain"),
-                      (htc, "hash_to_g2_plain"), (pairing, "pairing_check_plain")):
+                      (htc, "hash_to_g2_plain"), (pairing, "pairing_check_plain"),
+                      (pairing, "pairing_check_gt_plain")):
         monkeypatch.setattr(mod, name, no_plain)
     monkeypatch.setattr(_build, "same_device", lambda *t: torch.device("cuda"))
     with pytest.raises((RuntimeError, AssertionError)) as exc:

@@ -14,7 +14,11 @@ scan, the scatter, the chunk levels, the superset-sum combine) runs on
 the plain point operations with the kernel's index arithmetic and is
 held byte-exact against the oracle's Pippenger and the JAX ``_msm_core``
 under skewed digits: every scalar one repeated byte (one bucket), one
-non-zero digit, N = 1 and N = 300."""
+non-zero digit, N = 1 and N = 300.
+
+K7's schedule in python (``team_dbl``'s two waves of products, the warp
+packing and the coalesced stores) is held byte-exact against
+``PT.complete_dbl`` and ``expand_windows_plain`` in projective form."""
 import json
 
 import numpy as np
@@ -158,7 +162,9 @@ def test_identity_and_cancellation():
     assert msm.g1_msm([], [], device="cpu").infinity
 
 
-_ADD, _DBL, _AFFINE = 14, 9, L.INV_MULS + 2
+# RCB addition and doubling without their products by 3b = 12; an
+# inversion by the extended Euclid needs no products
+_ADD, _DBL, _AFFINE = 12, 8, 2
 
 
 @pytest.mark.parametrize("scalars, finite, want", [
@@ -351,3 +357,104 @@ def test_msm_plan_covers_extreme_digit_spreads(n):
             m = [-(-x // (msm.CHUNK if k else msm.FIRST_CHUNK)) for x in m]
             assert sum(m) <= plan.bounds[k + 1]
         assert max(m) == 1
+
+
+# ---------------------------------------------------------------------------
+# K7's schedule (csrc/msm.cu k_expand_windows over team.cuh team_dbl)
+# ---------------------------------------------------------------------------
+
+_MASK32 = (1 << 32) - 1
+
+
+def _mont(a: int, b: int) -> int:
+    """The CIOS product's value: a b 2^-384 mod p (Montgomery form)."""
+    return a * b * L.R_INV % L.P
+
+
+def _team_dbl(x: int, y: int, z: int) -> tuple:
+    """team_dbl's two waves on Montgomery-form ints: wave 1, one product a
+    thread, t0 = y^2, t1 = y z, xy = x y, zz = z^2; the operands by
+    additions (t2 = 12 zz, z3 = 8 t0, w = t0 - 3 t2, y3 = t0 + t2); wave 2,
+    m1 = t2 z3, m2 = t1 z3, m3 = w y3, m4 = w xy; r = (2 m4, m1 + m3, m2)."""
+    p = L.P
+    t0, t1, xy, zz = _mont(y, y), _mont(y, z), _mont(x, y), _mont(z, z)
+    t2 = 12 * zz % p
+    z3, y3, w = 8 * t0 % p, (t0 + t2) % p, (t0 - 3 * t2) % p
+    m1, m2, m3, m4 = _mont(t2, z3), _mont(t1, z3), _mont(w, y3), _mont(w, xy)
+    return 2 * m4 % p, (m1 + m3) % p, m2
+
+
+def _words(vals) -> list:
+    return [(v >> (32 * i)) & _MASK32 for v in vals for i in range(12)]
+
+
+@pytest.mark.parametrize("case", ["identity", "generator", "random_points", "any_triples"])
+def test_k7_team_dbl_waves_match_complete_dbl(case):
+    """team_dbl's waves give PT.complete_dbl's projective words, byte for
+    byte, on the identity, on points and on arbitrary triples."""
+    rng = np.random.default_rng(SEED + 2)
+    one = L.R_MONT
+    if case == "identity":
+        triples = [(0, one, 0)]
+    elif case == "generator":
+        g = g1_from_compressed(JG1.to_compressed())
+        triples = [(L.mont(g.x.n), L.mont(g.y.n), one)]
+    elif case == "random_points":
+        pts = [g1_from_compressed(JG1.mult(int(rng.integers(2, 2**62))).to_compressed())
+               for _ in range(4)]
+        triples = [(L.mont(q.x.n), L.mont(q.y.n), one) for q in pts]
+    else:
+        triples = [tuple(int.from_bytes(rng.bytes(48), "little") % L.P for _ in range(3))
+                   for _ in range(6)]
+    for t in triples:
+        proj = torch.from_numpy(L.words_from_ints([v * L.R_INV % L.P for v in t]))
+        want = L.pack(PT.complete_dbl(PT._G1, L.unpack(proj)))
+        got = _team_dbl(*t)
+        assert [w & _MASK32 for w in want.reshape(-1).tolist()] == _words(got)
+
+
+def _k7_model(pts, inf):
+    """k_expand_windows on python ints: 32 points a block, 8 teams of 4
+    threads a warp; a team past the end doubles the identity; each warp
+    copies its live points' 36-word entries (contiguous in shared memory
+    and in the output) as one word-per-lane store per window."""
+    n = pts.shape[0]
+    vals = L.ints_from_words(pts.reshape(-1, 12), mont_form=False)
+    out = [0] * (32 * n * 36)
+    for first in range(0, n, 8):                        # one warp
+        live = min(8, n - first)
+        cur = []
+        for tw in range(8):
+            i = first + tw
+            if tw >= live or bool(inf[i]):
+                cur.append((0, L.R_MONT, 0))
+            else:
+                cur.append((vals[2 * i], vals[2 * i + 1], L.R_MONT))
+        for w in range(msm.N_WINDOWS):
+            mine = _words([c for pt in cur for c in pt])
+            base = (w * n + first) * 36
+            for lane in range(32):
+                for j in range(lane, live * 36, 32):
+                    out[base + j] = mine[j]
+            if w + 1 < msm.N_WINDOWS:
+                for _ in range(msm.WINDOW_BITS):
+                    cur = [_team_dbl(*c) for c in cur]
+    return torch.tensor(np.array(out, dtype=np.uint32).view(np.int32).reshape(32, n, 3, 12))
+
+
+@pytest.mark.parametrize("n", [1, 5, 6, 33])
+def test_k7_schedule_matches_plain(n):
+    """The kernel's packing (teams, warps, the partial last warp) and its
+    coalesced stores give expand_windows_plain's table, byte for byte, at
+    sizes that fill no warp, with points at infinity and P beside -P."""
+    rng = np.random.default_rng(SEED + n)
+    pts = [g1_from_compressed(JG1.mult(int(rng.integers(2, 2**62))).to_compressed())
+           for _ in range(min(n, 6))]
+    while len(pts) < n:
+        pts.append(pts[-1] + pts[-2])
+    if n > 2:
+        pts[1] = G1Point.inf()
+    if n > 4:
+        pts[4] = -pts[3]
+    aff, inf = C.pack_g1(pts)
+    assert torch.equal(_k7_model(aff, inf), msm.expand_windows_plain(aff, inf))
