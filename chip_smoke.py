@@ -9,7 +9,8 @@ post-epoch roots through the mesh engine), time.
     python3 chip_smoke.py [--validators N]
     python3 chip_smoke.py --probe [--root DIR] [--sweep RUNS]
 
-``--probe`` runs no phase: it times K7 at every shape of the blob and
+``--probe`` runs no phase: it times K3 and K2 at every batch size the
+block paths launch them with, K7 at every shape of the blob and
 sampling paths, K4 at the block flush's, the per-lane batch's and the
 blob and cell verifies' shapes, K8 at the path's three shapes (with its
 stages) and K15 at the epoch engine's max-only and rewards calls beside
@@ -34,12 +35,16 @@ Phases, each fatal on failure (no phase's failure is caught):
    the torch backend (one product pairing), the per-lane batch verify, a
    bad signature named by ``last_results``, and AggregateVerify over 16
    messages;
-4. hold each kernel byte-identical to its plain version again at every
-   shape the block gave it (the flush's and the per-lane batch's calls;
-   K4's GT values too, and on the flush with one pair's P negated),
-   then time each kernel at the flush's shapes (CUDA events, after one
-   warm-up) beside its plain version and its bound, and time the block
-   flush and the 128-lane batch;
+4. hold K3 and K2 against their plain versions and the oracle on edge
+   inputs (K3: u = 0, a real u, u's whose maps take x1 and x2 in either
+   half; K2: an all-infinity batch, lanes P and -P, zero scalars and a
+   repeated signature, one lane), then each kernel byte-identical to its
+   plain version again at every shape the block gave it (the flush's and
+   the per-lane batch's calls; K4's GT values too, and on the flush with
+   one pair's P negated), then time each kernel at the flush's shapes
+   (CUDA events, after one warm-up) beside its plain version, its bound
+   and (K2, K3) its chain floor, and time the block flush and the
+   128-lane batch;
 5. hold K5 ``hash64`` and K6 ``sha256_blocks`` byte-identical to their
    plain versions on the card and to hashlib, on seeded rows (n = 1, 3,
    255, 256, 257, 4096) and on 1-, 2- and 5-block messages;
@@ -54,11 +59,13 @@ Phases, each fatal on failure (no phase's failure is caught):
    deserialization; the block must pass ``state_transition`` with one
    product pairing; the post-state's hashlib root must equal the block's
    ``state_root``; a forged attestation signature must be named alone;
-   a wrong ``state_root`` must raise.  Every K5 launch of the transition,
-   the cold root's largest launch and one launch per tree level are held
-   against the plain version; the cold root's tree builds of 2^14
-   chunks or more go through the mesh engine's span build (K18 launched,
-   every call held against its plain version); set-up, the cold root (K5
+   a wrong ``state_root`` must raise.  Every K1-K4 call of the transition
+   is held against its plain version (K4's GT values too); every K5
+   launch of the transition, the cold root's largest launch and one
+   launch per tree level are held against the plain version; the cold
+   root's tree builds of 2^14 chunks or more go through the mesh
+   engine's span build (K18 launched, every call held against its plain
+   version); set-up, the cold root (K5
    and K18 against hashlib), the transition's stages, K5 per launch and
    the copies are timed;
 7. hold K7 ``expand_windows``, K8 ``g1_msm`` and K9 ``fr_butterfly``
@@ -530,14 +537,17 @@ def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
 def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     """Phase 6: a mainnet phase0 block through ``state_transition`` on
     ``dev``.  Returns the K5 entry of the ``kernels`` line, the launch
-    counts of the transition and the pre-state (slot 0, untouched), which
-    phase 13 upgrades to Altair."""
+    counts of the transition, the pre-state (slot 0, untouched), which
+    phase 13 upgrades to Altair, the cold root's K18 record, and the
+    largest word difference of each K1-K4 call of the transition held
+    against its plain version (0)."""
     import numpy as np
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.forks import build_spec
     from consensus_specs_tpu_torch.ops import att_prep, bls_rlc, bls_torch, sha256
     from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
     from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+    from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
     from consensus_specs_tpu_torch.parallel import mesh_merkle
     from consensus_specs_tpu_torch.utils import bls, ssz
     from consensus_specs_tpu_torch.utils.ssz import merkle
@@ -657,8 +667,11 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
         clock.wrap(bls_torch, name)
     bls.clear_verify_memo()
     merkle.reset_stats()
+    bls_recs = [CallRecorder(torch, bls_torch, k) for k in KERNELS]
     torch.cuda.synchronize()
     with CallRecorder(torch, sha256, "hash64") as rec:
+        for r in bls_recs:
+            r.__enter__()
         _build.reset_launches()
         t0 = time.perf_counter()
         with bls.scoped_batch(bls.DeferredBatch()) as batch:
@@ -666,6 +679,8 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
         torch.cuda.synchronize()
         t_total = (time.perf_counter() - t0) * 1e3
         launches = dict(_build.launches)
+        for r in reversed(bls_recs):
+            r.__exit__()
     clock.restore()
     tr_stats = merkle.stats()
     check(batch.pairings == 1, f"expected one product pairing, got {batch.pairings}")
@@ -710,6 +725,14 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     hashlib_roots.submit("the phase0 block's post-state (the block's state_root)", spec, ssz,
                          post, bytes(block.state_root))
     del post
+    plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
+             "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
+             "pairing_check": k4_gt_plain(torch, pairing)}
+    bls_err = {r.name: r.hold(plain[r.name]) for r in bls_recs}
+    print(f"phase0: every K1-K4 call of the transition (K4's GT values too) held against "
+          f"their plain versions ({ {r.name: r.count for r in bls_recs} } calls, K2 at "
+          f"{[a[0].shape[0] for a, _ in bls_recs[1].calls]} lanes, K3 at "
+          f"{[a[0].shape[0] for a, _ in bls_recs[2].calls]} messages)")
 
     # -- the two rejections ---------------------------------------------------------
     forged = block.copy()
@@ -803,7 +826,8 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
             "hashlib_ms_at_cold_max": hl_big_ms, "cold_max_rows": int(big.shape[0]),
             "cold_max_ms": big_ms, "cold_kernel_ms": cold_kernel_ms,
             "cold_root_s": t_cold}, launches, state, \
-        {"calls": spans.calls, "launches": cold_launches["merkle_levels"], "err": k18_err}
+        {"calls": spans.calls, "launches": cold_launches["merkle_levels"], "err": k18_err}, \
+        bls_err
 
 
 def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
@@ -916,6 +940,72 @@ class CallRecorder:
             err = max(err, compare(self.torch, f"{self.name} at {self.shapes(args)}",
                                    self.canon(out), self.canon(tuple(as_tuple(want)))))
         return err
+
+
+def sswu_square(u) -> bool:
+    """Whether SSWU takes x1 for the oracle Fq2 ``u`` (g(x1) a square)."""
+    from consensus_specs_tpu_torch.ops.bls12_381 import hash_to_curve as OH
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import Fq2
+    A, B, Z = OH.A_PRIME, OH.B_PRIME, OH.Z_SSWU
+    zu2 = Z * u.square()
+    tv = zu2.square() + zu2
+    x1 = B * (Z * A).inv() if tv.is_zero() else (-B) * A.inv() * (Fq2.one() + tv.inv())
+    return (x1.square() * x1 + A * x1 + B).is_square()
+
+
+def k2_k3_edges(torch, dev) -> int:
+    """K3 on u = 0, on u's with zero imaginary parts and on seeded u's
+    that take x1 and x2 in either half; K2 on an all-infinity batch, on
+    lanes P and -P (the sum is the identity), on zero scalars and on a
+    repeated signature.  Each against its plain version and the oracle.
+    Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops.bls12_381 import hash_to_curve as OH
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G2_GENERATOR, G2Point
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import P, Fq2
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    from consensus_specs_tpu_torch.ops.torch_bls import htc, points
+    from consensus_specs_tpu_torch.ops.torch_bls import limbs as L
+    vals = iter(field_elements(b"k3-edges", 256, P))
+    us = {True: [], False: []}                  # two u's taking x1, two taking x2
+    while min(len(v) for v in us.values()) < 2:
+        u = Fq2(next(vals), next(vals))
+        us[sswu_square(u)].append(u)
+    sq, nsq = us[True], us[False]
+    pairs = [(Fq2(0, 0), Fq2(0, 0)), (Fq2(next(vals), 0), Fq2(0, 0)),
+             (sq[0], nsq[0]), (nsq[1], sq[1])]
+    words = torch.from_numpy(L.words_from_ints(
+        [c for p in pairs for x in p for c in (x.a.n, x.b.n)]).reshape(len(pairs), 2, 2, 12).copy())
+    u = words.to(dev)
+    got = htc.hash_to_g2(u)
+    err = compare(torch, "K3 (edges)", got, htc.hash_to_g2_plain(u))
+    oracle = [OH.clear_cofactor(G2Point(*OH.iso_map_g2(*OH.map_to_curve_sswu(a)))
+                                + G2Point(*OH.iso_map_g2(*OH.map_to_curve_sswu(b))))
+              for a, b in pairs]
+    check(C.unpack_g2(*got) == oracle, "K3 differs from the oracle on the edge u's")
+    branches = [(sswu_square(a), sswu_square(b)) for a, b in pairs]
+    print(f"check K3 edges: u = 0, a real u, and u's taking (x1 or x2) per half {branches}: "
+          f"equal to the plain version and the oracle")
+    g = [G2_GENERATOR.mult(v) for v in field_elements(b"k2-edges", 3, 1 << 64)]
+    cases = {"all infinity": ([G2Point.inf()] * 3, [5, 7, 1 << 127]),
+             "P and -P": ([g[0], -g[0]], [9, 9]),
+             "zero scalars and a repeated signature": ([g[1], g[2], g[1], g[1]],
+                                                       [0, 3, (1 << 128) - 1, 0]),
+             "one lane": ([g[2]], [1])}
+    for tag, (sigs, scalars) in cases.items():
+        sw, si = (t.to(dev) for t in C.pack_g2(sigs))
+        raw = b"".join(v.to_bytes(16, "little") for v in scalars)
+        sc = torch.from_numpy(np.frombuffer(raw, dtype=np.int32).reshape(-1, 4).copy()).to(dev)
+        got = points.g2_scale_sum(sw, si, sc)
+        err = max(err, compare(torch, f"K2 (edges, {tag})", got,
+                               points.g2_scale_sum_plain(sw, si, sc)))
+        acc = G2Point.inf()
+        for p, k in zip(sigs, scalars):
+            acc = acc + p.mult(k)
+        check(C.unpack_g2(got[0][None], got[1].reshape(1))[0] == acc,
+              f"K2 differs from the oracle ({tag})")
+    print(f"check K2 edges: {', '.join(cases)}: equal to the plain version and the oracle")
+    return err
 
 
 def k4_gt_plain(torch, pairing):
@@ -2705,7 +2795,8 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
 
 
 # ---------------------------------------------------------------------------
-# --probe: K7, K4, K8 and K15 timed through their wrappers; the engine sweep
+# --probe: K3, K2, K7, K4, K8 and K15 timed through their wrappers; the
+# engine sweep
 # ---------------------------------------------------------------------------
 
 PROBE_POINTS = 4096
@@ -2806,6 +2897,50 @@ def probe_k4(torch, dev) -> dict:
                     pairing.pairing_check_plain(*args))
         out[tag] = {"pairs": n, "groups": groups,
                     "queued_ms": queued_ms(torch, lambda: pairing.pairing_check(*args), 5)}
+    return out
+
+
+PROBE_K3_SHAPES = ((4, "phase 2"), (16, "AggregateVerify"), (130, "phase0 block"),
+                   (131, "block flush, per-lane batch, Altair block"))
+PROBE_K2_SHAPES = ((4, "phase 2"), (130, "phase0 block"), (131, "block flush, Altair block"))
+
+
+def probe_k3(torch, dev) -> dict:
+    """K3 at every message count the paths launch it with, on seeded
+    messages: each call held against the plain version first, then
+    device ms per call queued ahead."""
+    from consensus_specs_tpu_torch.ops.torch_bls import htc
+    msgs = [hashlib.sha256(b"probe-k3" + i.to_bytes(4, "little")).digest() for i in range(131)]
+    u = htc.hash_to_field_host(msgs).to(dev)
+    out = {}
+    for n, tag in PROBE_K3_SHAPES:
+        un = u[:n].contiguous()
+        compare(torch, f"K3 (probe, {n} messages)", htc.hash_to_g2(un), htc.hash_to_g2_plain(un))
+        out[n] = {"path": tag, "queued_ms": queued_ms(torch, lambda: htc.hash_to_g2(un), 10)}
+    return out
+
+
+def probe_k2(torch, dev) -> dict:
+    """K2 at every lane count the paths launch it with, on seeded
+    signatures [a_i] G2 and uniform 128-bit scalars: each call held
+    against the plain version first, then device ms per call queued
+    ahead."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G2_GENERATOR
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    from consensus_specs_tpu_torch.ops.torch_bls import points
+    gs = [G2_GENERATOR.mult(v) for v in field_elements(b"probe-k2", 8, 1 << 64)]
+    scalars = field_elements(b"probe-k2-scalars", 131, 1 << 128)
+    sig, sig_inf = (t.to(dev) for t in C.pack_g2([gs[i % 8] for i in range(131)]))
+    raw = b"".join(v.to_bytes(16, "little") for v in scalars)
+    sc = torch.from_numpy(np.frombuffer(raw, dtype=np.int32).reshape(131, 4).copy()).to(dev)
+    out = {}
+    for n, tag in PROBE_K2_SHAPES:
+        args = (sig[:n].contiguous(), sig_inf[:n].contiguous(), sc[:n].contiguous())
+        compare(torch, f"K2 (probe, {n} lanes)", points.g2_scale_sum(*args),
+                points.g2_scale_sum_plain(*args))
+        out[n] = {"path": tag, "queued_ms": queued_ms(torch, lambda: points.g2_scale_sum(*args),
+                                                      10)}
     return out
 
 
@@ -2925,9 +3060,17 @@ def probe_main(torch, card: str, root: str, runs: int) -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     _build.build_all()
+    for lib, text in sorted(_build.ptxas_report.items()):
+        for line in ptxas_summary(text):
+            print(f"ptxas {lib}.cu: {line}")
     result = {"root": root, "card": card, "build_s": time.perf_counter() - t0,
+              "k3": probe_k3(torch, dev), "k2": probe_k2(torch, dev),
               "k7": probe_k7(torch, dev), "k4": probe_k4(torch, dev),
               "k8": probe_k8(torch, dev), "k15": probe_k15(torch, dev)}
+    for name in ("k3", "k2"):
+        for n, v in result[name].items():
+            print(f"{name.upper()} {n} ({v['path']}): {v['queued_ms']:.4f} ms per call queued "
+                  f"ahead on {card}")
     for n, ms in result["k7"].items():
         print(f"K7 N={n}: {ms:.4f} ms per call queued ahead on {card}")
     for tag, v in result["k4"].items():
@@ -2948,7 +3091,8 @@ def main(argv=None) -> int:
     ap.add_argument("--validators", type=int, default=VALIDATORS,
                     help="active validators of the phase0 and Altair states (default 2^20)")
     ap.add_argument("--probe", action="store_true",
-                    help="time K7, K4, K8 and K15 through their wrappers instead of the phases")
+                    help="time K3, K2, K7, K4, K8 and K15 through their wrappers instead of "
+                         "the phases")
     ap.add_argument("--root", default=None,
                     help="with --probe: a checkout of the port inside this one to measure")
     ap.add_argument("--sweep", type=int, default=0, metavar="RUNS",
@@ -3189,10 +3333,13 @@ def main(argv=None) -> int:
         "pairing_check": ("consensus_specs_tpu_torch/csrc/pairing.cu",
                           "consensus_specs_tpu/ops/jax_bls/pairing.py:452"),
     }
+    edge_err = k2_k3_edges(torch, cu)
+    chain = {"g2_scale_sum": lambda sig, sig_inf, sc: points.g2_scale_sum_chain(sig_inf, sc),
+             "hash_to_g2": lambda u: htc.hash_to_g2_chain()}
     kernels = []
     for name in KERNELS:
         fn = originals[name]
-        err, p_ms = 0, None
+        err, p_ms = (edge_err if name in chain else 0), None
         for which in ("flush", "lanes"):
             if (which, name) not in recorded:
                 continue
@@ -3221,8 +3368,12 @@ def main(argv=None) -> int:
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": "operations",
             "library_ms": None, "fq_products": fq})
+        if name in chain:
+            kernels[-1]["chain_fq_products"] = chain[name](*args)
         print(f"time {name}: {k_ms:.3f} ms (plain {p_ms:.1f} ms, bound {b_ms:.5f} ms "
-              f"from {fq} Fq products) on {card}")
+              f"from {fq} Fq products"
+              + (f"; chain floor {kernels[-1]['chain_fq_products']} dependent Fq products"
+                 if name in chain else "") + f") on {card}")
     k4_tampered(torch, pairing, recorded[("flush", "pairing_check")], "the block flush")
 
     def flush_once():
@@ -3278,9 +3429,13 @@ def main(argv=None) -> int:
     lap("phase 15")
 
     # ---- 6. a mainnet phase0 block through state_transition -----------------
-    k5, block_launches, phase0_state, cold_k18 = phase0_block(torch, cu, card, sks, pks,
-                                                             opts.validators)
+    k5, block_launches, phase0_state, cold_k18, bls_err = phase0_block(
+        torch, cu, card, sks, pks, opts.validators)
     mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], cold_k18["err"])
+    for e in kernels:
+        if e["name"] in bls_err:
+            e["phase0_block_launches"] = block_launches[e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], bls_err[e["name"]])
     kernels.append(k5)
     kernels.append(sha256_blocks_entry(torch, sha256, k6_args, block_launches["sha256_blocks"]))
 

@@ -23,7 +23,6 @@ from pathlib import Path
 import torch
 
 from .ops.bls12_381 import fields as _F
-from .ops.bls12_381 import hash_to_curve as _H
 
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
@@ -76,11 +75,6 @@ def _mont(n: int) -> int:
     return (n % _F.P) * ((1 << 384) % _F.P) % _F.P
 
 
-def _fq2(name: str, x) -> str:
-    return (f"DCONST Fq2 {name} = {{{{{_words(_mont(x.a.n))}}}, "
-            f"{{{_words(_mont(x.b.n))}}}}};")
-
-
 def constants_header() -> str:
     """Every constant the kernels need, derived from the oracle modules:
     raw words for the moduli and exponents, Montgomery form otherwise
@@ -94,40 +88,11 @@ def constants_header() -> str:
            f"#define BLS_ONE_WORDS {_words(_mont(1))}",
            f"#define BLS_R3_WORDS {_words(pow(2, 3 * 384, P))}",
            f"#define BLS_EXP_INV {_words(P - 2)}",
-           f"#define BLS_EXP_SQRT {_words((P + 1) // 4)}",
-           f"#define BLS_EXP_LEGENDRE {_words((P - 1) // 2)}",
-           f"#define BLS_INV2_WORDS {_words(_mont(pow(2, -1, P)))}",
            f"#define BLS_B3_G1_WORDS {_words(_mont(12))}",
            f"#define BLS_ABS_X 0x{-_F.X_PARAM:016x}ull",
            f"#define BLS_R_WORDS {_words(R, 8)}",
            f"#define BLS_R_N0 0x{(-pow(R, -1, 1 << 32)) % (1 << 32):08x}u"]
     return "\n".join(out) + "\n"
-
-
-def tower_constants() -> str:
-    """Fq2 constants (need the Fq2 type, so included after tower.cuh)."""
-    F2 = _F.Fq2
-    v = [F2(1, 0), _F.FROB_V1, _F.FROB_V2]
-    lines = ["#pragma once"]
-    for i in range(3):
-        for h in range(2):
-            g = v[i] * _F.FROB_W if h else v[i]
-            lines.append(_fq2(f"FROB_GAMMA_{2 * i + h}", g))
-    lines.append(_fq2("B3_G2", F2(12, 12)))
-    lines.append(_fq2("SSWU_A", _H.A_PRIME))
-    lines.append(_fq2("SSWU_B", _H.B_PRIME))
-    lines.append(_fq2("SSWU_Z", _H.Z_SSWU))
-    lines.append(_fq2("SSWU_NEG_B_OVER_A", -_H.B_PRIME * _H.A_PRIME.inv()))
-    lines.append(_fq2("SSWU_B_OVER_ZA",
-                      _H.B_PRIME * (_H.Z_SSWU * _H.A_PRIME).inv()))
-    for name, tab in (("ISO_XNUM", _H.ISO_XNUM), ("ISO_XDEN", _H.ISO_XDEN),
-                      ("ISO_YNUM", _H.ISO_YNUM), ("ISO_YDEN", _H.ISO_YDEN)):
-        lines.append(f"#define {name}_LEN {len(tab)}")
-        for i, c in enumerate(tab):
-            lines.append(_fq2(f"{name}_{i}", c))
-    lines.append(_fq2("PSI_CX", _H._PSI_CX))
-    lines.append(_fq2("PSI_CY", _H._PSI_CY))
-    return "\n".join(lines) + "\n"
 
 
 def sha256_constants() -> str:
@@ -142,15 +107,15 @@ def sha256_constants() -> str:
                       arr("SHA_PAD_KW", S.PAD_KW)]) + "\n"
 
 
-# The sources pairing_programs() generates K4's tables from: the digest
+# The sources pairing_programs() generates K2-K4's tables from: the digest
 # hashes them, so that loading a built library never traces the programs.
 PROGRAM_SOURCES = ("ops/torch_bls/team_programs.py", "ops/torch_bls/limbs.py",
-                   "ops/bls12_381/fields.py")
+                   "ops/bls12_381/fields.py", "ops/bls12_381/hash_to_curve.py")
 
 
 @functools.lru_cache(maxsize=None)
 def pairing_programs() -> str:
-    """K4's team programs as tables (``ops/torch_bls/team_programs.py``;
+    """K2-K4's team programs as tables (``ops/torch_bls/team_programs.py``;
     traced and scheduled once per process, ~3 s)."""
     from .ops.torch_bls import team_programs
     return team_programs.header()
@@ -166,7 +131,6 @@ def _digest() -> str:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(constants_header().encode())
-    h.update(tower_constants().encode())
     h.update(sha256_constants().encode())
     for rel in PROGRAM_SOURCES:
         h.update(rel.encode())
@@ -195,7 +159,6 @@ def build_all() -> dict:
         return paths
     gen.mkdir(parents=True, exist_ok=True)
     (gen / "bls_constants.cuh").write_text(constants_header())
-    (gen / "tower_constants.cuh").write_text(tower_constants())
     (gen / "sha256_constants.cuh").write_text(sha256_constants())
     (gen / "pairing_programs.cuh").write_text(pairing_programs())
     nvcc = _nvcc()
@@ -228,7 +191,7 @@ _VP = ctypes.c_void_p
 _SIGS = {
     "g1_aggregate_scale": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int,
                            ctypes.c_int, _VP],
-    "g2_scale_sum": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _VP],
+    "g2_scale_sum": [_VP] * 7 + [ctypes.c_int, _VP],
     "hash_to_g2": [_VP, _VP, _VP, ctypes.c_int, _VP],
     "pairing_check": [_VP] * 7 + [ctypes.c_int] * 3 + [_VP],
     "hash64": [_VP, _VP, ctypes.c_int, _VP],

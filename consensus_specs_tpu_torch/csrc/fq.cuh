@@ -1,7 +1,8 @@
 // Fq, the BLS12-381 base field: 12 x 32-bit little-endian limbs in
 // Montgomery form (R = 2^384), CIOS multiplication on 32x32->64
-// multiply-adds, and a fixed-exponent ladder for inverse, square root and
-// the Legendre symbol.  Every input and output is fully reduced (< p).
+// multiply-adds, and a fixed-exponent ladder for K1's inverse (the other
+// kernels invert by fq_inv.cuh's binary extended Euclid).  Every input and
+// output is fully reduced (< p).
 //
 // Replaces the JAX package's ops/jax_bls/limbs.py, whose 24 x 16-bit limbs
 // with f32 column sums exist only because the TPU lacks a 64-bit integer
@@ -19,11 +20,8 @@ struct Fq {
 
 DCONST uint32_t FQ_P[NW] = BLS_P_WORDS;
 DCONST Fq FQ_ONE = {BLS_ONE_WORDS};
-DCONST Fq FQ_INV2 = {BLS_INV2_WORDS};
 DCONST Fq FQ_B3 = {BLS_B3_G1_WORDS};
 DCONST uint32_t EXP_INV[NW] = BLS_EXP_INV;
-DCONST uint32_t EXP_SQRT[NW] = BLS_EXP_SQRT;
-DCONST uint32_t EXP_LEGENDRE[NW] = BLS_EXP_LEGENDRE;
 
 DEV void fq_zero(Fq& r) {
 #pragma unroll
@@ -157,23 +155,6 @@ DEVNI void fq_pow(Fq& r, const Fq& a, const uint32_t* e) {
 }
 
 DEV void fq_inv(Fq& r, const Fq& a) { fq_pow(r, a, EXP_INV); }
-DEV void fq_sqrt_cand(Fq& r, const Fq& a) { fq_pow(r, a, EXP_SQRT); }
-
-// zero or a quadratic residue
-DEV bool fq_is_square(const Fq& a) {
-  Fq l;
-  fq_pow(l, a, EXP_LEGENDRE);
-  return fq_eq(l, FQ_ONE) || fq_is_zero(a);
-}
-
-// parity of the canonical (non-Montgomery) value
-DEV uint32_t fq_parity(const Fq& a) {
-  Fq one_raw, c;
-  fq_zero(one_raw);
-  one_raw.v[0] = 1;
-  fq_mul(c, a, one_raw);
-  return c.v[0] & 1u;
-}
 
 DEV void fq_load(Fq& r, const uint32_t* src) {
 #pragma unroll

@@ -9,7 +9,8 @@
 // Slots below PP_TMP0 are bound (argument b of a run, slot PP_BIND b + i;
 // the constants at PP_CONST_BIND), the others the team's temporaries.
 // Every value is fully reduced, so a program's outputs are the canonical
-// residues tower.cuh's one-thread code computes.
+// residues the plain version computes.  K4 runs teams of PP_TEAM threads
+// (a block); K2 and K3 teams of one warp (g2_team.cuh).
 #pragma once
 #include "fq_inv.cuh"
 #include "pairing_programs.cuh"
@@ -28,31 +29,12 @@ DEV Fq* pp_slot(uint32_t v, const PPBind& b, Fq* tmp) {
   return v < PP_TMP0 ? b.arg[v / PP_BIND] + v % PP_BIND : tmp + (v - PP_TMP0);
 }
 
-// r = sum of n terms c_j x_j (x_j < p, |c_j| < 128, sum |c_j| < 2^10),
-// fully reduced.  The words accumulate apart, in 64 bits, with no carry
-// chain per term: from WEIGHT p (PP_WEIGHT_P, which keeps the sum
-// non-negative), then one carry pass, one quotient estimate from the top
-// 64 bits (q = floor(T / (p_11 + 1)) for T the words above 2^352; the
-// remainder is below 2p) and one conditional subtraction.  A term costs
-// 12 independent multiply-adds, against fq_add's dependent carry chain.
-DEV void pp_sum(Fq& r, const uint32_t* terms, int n, const PPBind& b, Fq* tmp) {
-  int64_t acc[NW];
-#pragma unroll
-  for (int i = 0; i < NW; i++) acc[i] = PP_WEIGHT_P[i];
-#pragma unroll 4
-  for (int j = 0; j < n; j++) {
-    const uint32_t t = terms[j];
-    const int64_t c = (int8_t)(uint8_t)(t >> 16);
-    const uint4* x = (const uint4*)pp_slot(t & 0xFFFFu, b, tmp);   // 16-byte aligned slots
-#pragma unroll
-    for (int k = 0; k < NW / 4; k++) {
-      const uint4 u = x[k];
-      acc[4 * k] += c * (int64_t)u.x;
-      acc[4 * k + 1] += c * (int64_t)u.y;
-      acc[4 * k + 2] += c * (int64_t)u.z;
-      acc[4 * k + 3] += c * (int64_t)u.w;
-    }
-  }
+// The words of a sum accumulated from WEIGHT p (PP_WEIGHT_P, which keeps
+// it non-negative) -> its residue, fully reduced: one carry pass, one
+// quotient estimate from the top 64 bits (q = floor(T / (p_11 + 1)) for T
+// the words above 2^352; the remainder is below 2p) and one conditional
+// subtraction.
+DEV void pp_reduce(Fq& r, const int64_t* acc) {
   uint32_t w[NW];
   int64_t carry = 0;
 #pragma unroll
@@ -74,6 +56,41 @@ DEV void pp_sum(Fq& r, const uint32_t* terms, int n, const PPBind& b, Fq* tmp) {
   fq_reduce_once(r, w, 0);
 }
 
+// r = sum of n terms c_j x_j (x_j < p, |c_j| < 128, sum |c_j| < 2^10),
+// fully reduced; term(j, c) returns x_j (16-byte aligned) and sets c_j.
+// The words accumulate apart, in 64 bits, with no carry chain per term,
+// then pp_reduce.  A term costs 12 independent multiply-adds, against
+// fq_add's dependent carry chain.  K4's ops and K2's and K3's steps
+// (g2_team.cuh team_lin) differ only in how a term is encoded.
+template <class Term>
+DEV void pp_accumulate(Fq& r, int n, Term term) {
+  int64_t acc[NW];
+#pragma unroll
+  for (int i = 0; i < NW; i++) acc[i] = PP_WEIGHT_P[i];
+  for (int j = 0; j < n; j++) {
+    int64_t c;
+    const uint4* x = (const uint4*)term(j, c);
+#pragma unroll
+    for (int k = 0; k < NW / 4; k++) {
+      const uint4 u = x[k];
+      acc[4 * k] += c * (int64_t)u.x;
+      acc[4 * k + 1] += c * (int64_t)u.y;
+      acc[4 * k + 2] += c * (int64_t)u.z;
+      acc[4 * k + 3] += c * (int64_t)u.w;
+    }
+  }
+  pp_reduce(r, acc);
+}
+
+// a term: slot | (coefficient & 0xff) << 16
+DEV void pp_sum(Fq& r, const uint32_t* terms, int n, const PPBind& b, Fq* tmp) {
+  pp_accumulate(r, n, [&](int j, int64_t& c) -> const Fq* {
+    const uint32_t t = terms[j];
+    c = (int8_t)(uint8_t)(t >> 16);
+    return pp_slot(t & 0xFFFFu, b, tmp);
+  });
+}
+
 DEV void pp_exec(int i, const PPBind& b, Fq* tmp) {
   const uint32_t w0 = PP_OPS[2 * i], first = PP_OPS[2 * i + 1];
   const int kind = (w0 >> 16) & 0xF;
@@ -89,10 +106,11 @@ DEV void pp_exec(int i, const PPBind& b, Fq* tmp) {
   fq_set(*pp_slot(w0 & 0xFFFFu, b, tmp), x);
 }
 
-// thread tid's ops of one level
+// thread tid's ops of one level, for a team of TEAM threads
+template <int TEAM = PP_TEAM>
 DEV void pp_run_level(int level, const PPBind& b, Fq* tmp, int tid) {
   const int end = (int)PP_LEVELS[level + 1];
-  for (int i = (int)PP_LEVELS[level] + tid; i < end; i += PP_TEAM) pp_exec(i, b, tmp);
+  for (int i = (int)PP_LEVELS[level] + tid; i < end; i += TEAM) pp_exec(i, b, tmp);
 }
 
 #ifdef __CUDACC__

@@ -1,10 +1,11 @@
-// Projective G1/G2 arithmetic with the Renes-Costello-Batina complete
+// Projective G1 arithmetic with the Renes-Costello-Batina complete
 // formulas for a = 0 (addition: Algorithm 7, doubling: Algorithm 9), the
 // formulas of the JAX package's ops/jax_bls/points.py.  Complete formulas
 // keep a repeated key and an identity lane exact.  Templated over the
-// coordinate field through the overloads below.
+// coordinate field through the overloads below (G2's steps are team
+// programs: g2_team.cuh).
 #pragma once
-#include "tower.cuh"
+#include "fq.cuh"
 
 // ------------------------------------------------ field overload layer
 
@@ -17,16 +18,6 @@ DEV void fzero(Fq& r) { fq_zero(r); }
 DEV void fone(Fq& r) { fq_set(r, FQ_ONE); }
 DEV void finv(Fq& r, const Fq& a) { fq_inv(r, a); }
 DEV void fb3(Fq& r) { fq_set(r, FQ_B3); }
-
-DEV void fadd(Fq2& r, const Fq2& a, const Fq2& b) { f2_add(r, a, b); }
-DEV void fsub(Fq2& r, const Fq2& a, const Fq2& b) { f2_sub(r, a, b); }
-DEV void fmul(Fq2& r, const Fq2& a, const Fq2& b) { f2_mul(r, a, b); }
-DEV void fneg(Fq2& r, const Fq2& a) { f2_neg(r, a); }
-DEV bool fis_zero(const Fq2& a) { return f2_is_zero(a); }
-DEV void fzero(Fq2& r) { f2_zero(r); }
-DEV void fone(Fq2& r) { f2_one(r); }
-DEV void finv(Fq2& r, const Fq2& a) { f2_inv(r, a); }
-DEV void fb3(Fq2& r) { f2_set(r, B3_G2); }
 
 template <typename F>
 struct Pt {
@@ -158,14 +149,6 @@ DEV void g1_load_affine(Pt<Fq>& r, const uint32_t* src) {
   fq_set(r.z, FQ_ONE);
 }
 
-DEV void g2_load_affine(Pt<Fq2>& r, const uint32_t* src) {
-  fq_load(r.x.a, src);
-  fq_load(r.x.b, src + NW);
-  fq_load(r.y.a, src + 2 * NW);
-  fq_load(r.y.b, src + 3 * NW);
-  f2_one(r.z);
-}
-
 DEV void g1_load_proj(Pt<Fq>& r, const uint32_t* src) {
   fq_load(r.x, src);
   fq_load(r.y, src + NW);
@@ -176,14 +159,4 @@ DEV void g1_store_proj(uint32_t* dst, const Pt<Fq>& p) {
   fq_store(dst, p.x);
   fq_store(dst + NW, p.y);
   fq_store(dst + 2 * NW, p.z);
-}
-
-DEV void f2_load(Fq2& r, const uint32_t* src) {
-  fq_load(r.a, src);
-  fq_load(r.b, src + NW);
-}
-
-DEV void f2_store(uint32_t* dst, const Fq2& x) {
-  fq_store(dst, x.a);
-  fq_store(dst + NW, x.b);
 }

@@ -118,12 +118,15 @@ def hash_to_g2_plain(u):
 
 def hash_to_g2_fq_products(u) -> int:
     """Fq products K3's function needs for the B messages of ``u``: per
-    message, two SSWU maps (inversion, Legendre symbol, square roots) and
-    3-isogenies, Q0 + Q1, the cofactor chain (two [|x|] ladders, five
-    additions, a doubling, three psi maps) and the affine result."""
+    message, two SSWU maps (inversion, the square roots of the complex
+    method, whose first root also decides the square test, so no
+    Legendre symbol) and 3-isogenies, Q0 + Q1, the cofactor chain (two
+    [|x|] ladders, five additions, a doubling, three psi maps) and the
+    affine result."""
+    from . import team_programs as TP
     ones = bin(-X_PARAM).count("1") - 1
-    sswu_ = (2 + 3 + 2 + T.F2_INV + 3 + 5 + 2 + L.LEGENDRE_MULS
-             + 5 + 2 * L.SQRT_MULS + 2)
+    root = TP.LADDER_MULS + 1                 # c = a^((p - 3) / 4), then a c
+    sswu_ = (2 + 3 + 2 + T.F2_INV + 3 + 5 + 2 + 5 + 2 * root + 2)
     iso = 11 * T.F2_MUL + T.F2_MUL + T.F2_INV + 5 * T.F2_MUL
     mul_x = len(_ABS_X_BITS) * PT.G2_DBL + ones * PT.G2_ADD
     cof = 2 * mul_x + 5 * PT.G2_ADD + PT.G2_DBL + 3 * 2 * T.F2_MUL
@@ -131,16 +134,37 @@ def hash_to_g2_fq_products(u) -> int:
     return u.shape[0] * per_msg
 
 
+def hash_to_g2_chain() -> int:
+    """K3's chain floor: the dependent Fq product latencies of one message
+    in its design (any B).  A map (both maps run side by side): the front
+    and the candidates' numerators as team programs, two square-root
+    ladders (each with its products by the root and the square test), the
+    affine point and the isogeny; then the steps of Q0 + Q1, the two
+    [|x|] chains and R (two product waves each), the chain's end and the
+    normalization.  The binary-Euclid inversions have no products."""
+    from . import team_programs as TP
+    lv = TP.product_levels
+    ladders = 2 * (TP.LADDER_MULS + 2)
+    maps = lv("h2c_front") + lv("h2c_gx") + ladders + lv("h2c_xy") + lv("h2c_iso")
+    steps = 2 + 2 * (len(_ABS_X_BITS) + bin(-X_PARAM).count("1") - 1)
+    return (maps + steps * TP.STEP_PRODUCT_WAVES + lv("h2c_tail") + lv("g2_norm")
+            + lv("g2_affine"))
+
+
 def hash_to_g2(u):
     """K3.  ``u``: (B, 2, 2, 12) int32, the two hash_to_field Fq2 outputs
     (u0, u1) per message.  Returns affine G2 points (B, 2, 2, 12) int32
     and infinity flags (B,) bool.
 
-    CUDA: one thread per message, the whole map in registers; six
-    fixed-exponent ladders (inverse, Legendre, three square roots, the
-    isogeny inverse) and the two 64-bit x-chains dominate.  Bound:
-    integer multiply-adds (``hash_to_g2_fq_products``).  At a block's 131 messages the card runs 131
-    threads: latency, not throughput, bounds it."""
+    CUDA: a block of three warps per message.  Warps 0 and 1 run the maps
+    of u0 and u1 side by side as team programs, x1 kept as a fraction
+    N / D; each map's square test is its first square-root ladder, and
+    both candidates of each ladder run at once on two lanes (two ladders
+    a map); warp 2 inverts N(D) meanwhile (binary extended Euclid).  Warp
+    0 then runs Q0 + Q1 and the cofactor chain as laid-out team steps and
+    ends with one inversion.  Bound: the chain (``hash_to_g2_chain``), not
+    the card's multiply-add rate (``hash_to_g2_fq_products``): at a
+    block's 131 messages the card runs 131 blocks."""
     dev = _build.same_device(u)
     B = u.shape[0]
     _build.check(u, "u", torch.int32, (B, 2, 2, 12))

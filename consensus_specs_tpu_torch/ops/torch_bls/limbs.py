@@ -300,12 +300,6 @@ def legendre_is_qr(a):
     return eq(pow_fixed(a, LEGENDRE_EXP), one_like(a)) | is_zero(a)
 
 
-# Fq products of the fixed powers in the kernels' bounds.  An inversion
-# counts none: the binary extended Euclid (``csrc/fq_inv.cuh``) makes it
-# with additions and shifts.
-SQRT_MULS, LEGENDRE_MULS = pow_muls(SQRT_EXP), pow_muls(LEGENDRE_EXP)
-
-
 def parity(a):
     """Parity of the canonical value of a Montgomery element."""
     return from_mont(a)[..., 0] & 1

@@ -211,7 +211,7 @@ def g1_aggregate_scale_fq_products(pk, counts, scalars=None) -> int:
     """Fq products K1's function needs on these inputs: per row, count - 1
     mixed additions of its affine keys, then the scalar's ladder (whose
     base, the sum, is projective: full additions), then an inversion (no
-    products, see ``limbs.SQRT_MULS``) and two products to make it affine."""
+    products, see ``tower.F2_INV``) and two products to make it affine."""
     n = sum(max(int(k) - 1, 0) for k in counts.tolist()) * G1_MADD
     for k in (scalar_ints(scalars) if scalars is not None else ()):
         n += _ladder_fq_products(k, G1_DBL, G1_ADD)
@@ -264,13 +264,44 @@ def g2_scale_sum_plain(sig, sig_inf, scalars):
     return L.pack(out), inf
 
 
+def _g2_lane_fq_products(k: int) -> int:
+    """[k]P for an affine P by the cheaper of binary double-and-add and
+    K2's sliding windows (2P and the odd multiples' table, then a doubling
+    per bit after the first window and an addition per further window)."""
+    from . import team_programs as TP
+    if k == 0:
+        return 0
+    _, mid, tail = TP.sliding_windows(k, TP.K2_WIN)
+    table = G2_DBL + ((1 << (TP.K2_WIN - 1)) - 1) * G2_ADD
+    windows = table + sum(sq * G2_DBL + G2_ADD for sq, _ in mid) + tail * G2_DBL
+    return min(windows, _ladder_fq_products(k, G2_DBL, G2_MADD))
+
+
 def g2_scale_sum_fq_products(sig, sig_inf, scalars) -> int:
     """Fq products K2's function needs on these inputs: each finite lane's
-    ladder over its affine signature, full additions joining the lanes,
-    an Fq2 inversion and two Fq2 products to make the sum affine."""
+    [r]P over its affine signature (``_g2_lane_fq_products``), full
+    additions joining the lanes, an Fq2 inversion and two Fq2 products to
+    make the sum affine."""
     live = [k for k, inf in zip(scalar_ints(scalars), sig_inf.tolist()) if not inf]
-    n = sum(_ladder_fq_products(k, G2_DBL, G2_MADD) for k in live)
+    n = sum(_g2_lane_fq_products(k) for k in live)
     return n + max(len(live) - 1, 0) * G2_ADD + T.F2_INV + 2 * T.F2_MUL
+
+
+def g2_scale_sum_chain(sig_inf, scalars) -> int:
+    """K2's chain floor on these inputs: the dependent Fq product latencies
+    of its design, the longest lane's steps (its table of odd multiples,
+    then its 4-bit sliding windows; two product waves a step), the tree's
+    ceil(log2 B) additions and the normalization (its binary-Euclid
+    inversion has no products)."""
+    from . import team_programs as TP
+    table = 1 << (TP.K2_WIN - 1)              # 2P, then 3P .. 15P
+    steps = [table + sum(sq + 1 for sq, _ in mid) + tail
+             for _, mid, tail in (TP.sliding_windows(k, TP.K2_WIN)
+                                  for k, inf in zip(scalar_ints(scalars), sig_inf.tolist())
+                                  if k and not inf)]
+    tree = (len(scalars) - 1).bit_length()
+    return (max(steps, default=0) + tree) * TP.STEP_PRODUCT_WAVES + \
+        TP.product_levels("g2_norm") + TP.product_levels("g2_affine")
 
 
 def g2_scale_sum(sig, sig_inf, scalars):
@@ -279,10 +310,14 @@ def g2_scale_sum(sig, sig_inf, scalars):
     sum_i [r_i] sig_i as (2, 2, 12) int32 and its infinity flag (bool,
     shape ()).
 
-    CUDA: two launches.  A one-thread block per lane runs its
-    double-and-add; a single block then sums the lane results and
-    inverts Z.  Bound: integer multiply-adds
-    (``g2_scale_sum_fq_products``: the 128-step ladders)."""
+    CUDA: one launch, one warp per lane.  The warp runs its lane's 4-bit
+    sliding windows over a table of odd multiples as laid-out team steps
+    (a G2 doubling or addition is two waves of Fq products), then the
+    lanes' partials are summed by a tree of team additions in which each
+    pair's second finisher adds (an arrival counter per pair), and the
+    last block normalizes with one binary-Euclid inversion.  Bound: the
+    chain of dependent products (``g2_scale_sum_chain``), not the card's
+    multiply-add rate (``g2_scale_sum_fq_products``)."""
     dev = _build.same_device(sig, sig_inf, scalars)
     B = sig.shape[0]
     _build.check(sig, "sig", torch.int32, (B, 2, 2, 12))
@@ -293,7 +328,8 @@ def g2_scale_sum(sig, sig_inf, scalars):
     if dev.type == "cpu":
         return g2_scale_sum_plain(sig, sig_inf, scalars)
     partial = torch.empty((B, 3, 2, 12), dtype=torch.int32, device=dev)
+    arrived = torch.zeros((B,), dtype=torch.int32, device=dev)
     out = torch.empty((2, 2, 12), dtype=torch.int32, device=dev)
     inf = torch.empty((), dtype=torch.bool, device=dev)
-    _build.launch("g2_scale_sum", sig, sig_inf, scalars, partial, out, inf, B)
+    _build.launch("g2_scale_sum", sig, sig_inf, scalars, partial, arrived, out, inf, B)
     return out, inf

@@ -1,5 +1,9 @@
-"""K4's team programs: the pairing's Fq12 steps as straight-line Fq
-programs, scheduled for a team of :data:`TEAM` threads.
+"""Team programs: K4's Fq12 steps (:data:`PROGRAMS`, for a team of
+:data:`TEAM` threads) and K2's and K3's G2 and hash-to-curve steps
+(:data:`G2_PROGRAMS`, for a team of one warp) as straight-line Fq
+programs; K2's and K3's G2 doubling and addition, whose programs are
+two waves of products, laid out as fixed waves (:data:`G2_STEPS`); K3's
+square-root ladder (:func:`ladder`).
 
 A program is traced once from formulas over Fq nodes (products and signed
 sums), the same formulas as ``tower.py`` / ``pairing.py`` and the JAX
@@ -15,7 +19,8 @@ Miller doubling, its line and ``f^2 * line`` together take four waves of
 products.  Every value is the canonical residue the one-thread code
 computes, so outputs are byte-identical whatever the order of the sums.
 
-``header()`` writes the programs as tables for ``csrc/pairing.cu``
+``header()`` writes the programs, the steps and the ladder as tables
+for ``csrc/pairing.cu``, ``csrc/points.cu`` and ``csrc/htc.cu``
 (``pairing_programs.cuh``, generated by ``_build.py``); ``run`` executes
 the same tables on python ints, level by level and thread by thread as
 the kernel does, and checks the level rules as it goes (the CPU tests
@@ -31,6 +36,7 @@ memory of an input (it alternates between two buffers).
 """
 from collections import defaultdict
 
+from ..bls12_381 import hash_to_curve as H
 from ..bls12_381.fields import P, Fq2 as _OFq2, FROB_V1, FROB_V2, FROB_W
 from .limbs import R_INV, mont
 
@@ -217,7 +223,7 @@ def f6_mul_by_v(B, x):
 
 
 def f6_mul(B, x, y):
-    """Karatsuba over Fq2 (``tower.cuh`` f6_mul): 6 Fq2 products."""
+    """Karatsuba over Fq2 (``tower.py`` f6_mul): 6 Fq2 products."""
     t0, t1, t2 = f2_mul(B, x[0], y[0]), f2_mul(B, x[1], y[1]), f2_mul(B, x[2], y[2])
     m = f2_mul(B, f2_add(B, x[1], x[2]), f2_add(B, y[1], y[2]))
     c0 = f2_add(B, t0, f2_mul_xi(B, f2_sub(B, f2_sub(B, m, t1), t2)))
@@ -236,7 +242,7 @@ def f12_mul(B, x, y):
 
 
 def f12_sqr(B, x):
-    """Complex squaring (``tower.cuh`` f12_sqr): 2 Fq6 products."""
+    """Complex squaring (``tower.py`` f12_sqr): 2 Fq6 products."""
     a, b = x
     ab = f6_mul(B, a, b)
     s = f6_mul(B, f6_add(B, a, b), f6_add(B, a, f6_mul_by_v(B, b)))
@@ -257,8 +263,8 @@ def f12_frobenius(B, x):
 
 
 def f12_cyc_sqr(B, x):
-    """Granger-Scott squaring of a cyclotomic element (``tower.cuh``
-    f12_cyc_sqr): 9 Fq2 squares."""
+    """Granger-Scott squaring of a cyclotomic element (``tower.py``
+    f12_cyclotomic_sqr): 9 Fq2 squares."""
     (x0, x1, x2), (x3, x4, x5) = x
     A, Bv = (x0, x3, x1), (x4, x2, x5)
     te, to = [], []
@@ -338,7 +344,7 @@ def add_step(B, r, qx, qy, px, py):
 # ---------------------------------------------------------------- programs
 # Each body takes the builder and its inputs as flat Fq node lists and
 # returns its outputs as flat lists.  Flat Fq12 order: (c0, c1) x (c0,
-# c1, c2) x (a, b), as tower.cuh's struct and the plain version's axes.
+# c1, c2) x (a, b), as the plain version's axes.
 
 def _f12(v):
     return tuple(tuple((v[6 * h + 2 * i], v[6 * h + 2 * i + 1]) for i in range(3))
@@ -445,6 +451,321 @@ PROGRAMS = {
 
 
 # ---------------------------------------------------------------------------
+# K2's and K3's programs: G2 steps and the hash-to-curve map, for a team of
+# one warp
+# ---------------------------------------------------------------------------
+# A point is flat (X.a, X.b, Y.a, Y.b, Z.a, Z.b), homogeneous projective,
+# with the Renes-Costello-Batina formulas of ``points.py`` (products by
+# 3b = 12 (1 + u) as sums: 12 (a - b) + 12 (a + b) u).  The constant
+# argument holds :data:`G2_CONSTS`; the isogeny's coefficients come as two
+# bound arguments (:data:`ISO_COEFS`).
+
+G2_TEAM = 32
+
+
+def _g2_consts():
+    """zero, A', B', Z, Z A', the raw 1 (a product by it leaves the
+    canonical value), psi's cx and cy, and the norms of cx and cy (psi^2
+    scales X and Y by them)."""
+    za = H.Z_SSWU * H.A_PRIME
+    vals = [0]
+    for c in (H.A_PRIME, H.B_PRIME, H.Z_SSWU, za):
+        vals += [mont(c.a.n), mont(c.b.n)]
+    vals.append(1)
+    for c in (H._PSI_CX, H._PSI_CY):
+        vals += [mont(c.a.n), mont(c.b.n)]
+    for c in (H._PSI_CX, H._PSI_CY):
+        vals.append(mont((c.a.n * c.a.n + c.b.n * c.b.n) % P))
+    assert len(vals) == BIND
+    return vals
+
+
+G2_CONSTS = _g2_consts()
+_K_A, _K_B, _K_Z, _K_ZA, _K_RAW1, _K_CX, _K_CY, _K_NCX, _K_NCY = 1, 3, 5, 7, 9, 10, 12, 14, 15
+
+
+def _k2(B, i):
+    """The Fq2 constant at G2_CONSTS[i:i + 2]."""
+    return B.leaf("c", ZERO_SLOT + i), B.leaf("c", ZERO_SLOT + i + 1)
+
+
+def _k1(B, i):
+    """The Fq constant G2_CONSTS[i]."""
+    return B.leaf("c", ZERO_SLOT + i)
+
+
+def _iso_tables():
+    return [H.ISO_XNUM, H.ISO_XDEN, H.ISO_YNUM, H.ISO_YDEN]
+
+
+# the isogeny's coefficients, flat (x_num, x_den, y_num, y_den; a, b each)
+ISO_COEFS = [mont(c.a.n if h == 0 else c.b.n) for t in _iso_tables() for c in t for h in (0, 1)]
+
+
+def _b3(B, x):
+    """12 (1 + u) x."""
+    return (B.lin((x[0], 12), (x[1], -12)), B.lin((x[0], 12), (x[1], 12)))
+
+
+def _pt(v):
+    return (v[0], v[1]), (v[2], v[3]), (v[4], v[5])
+
+
+def g2_add(B, p, q):
+    """RCB Algorithm 7 over Fq2 (``points.complete_add``)."""
+    (x1, y1, z1), (x2, y2, z2) = p, q
+    t0, t1, t2 = f2_mul(B, x1, x2), f2_mul(B, y1, y2), f2_mul(B, z1, z2)
+    m1 = f2_mul(B, f2_add(B, x1, y1), f2_add(B, x2, y2))
+    m2 = f2_mul(B, f2_add(B, y1, z1), f2_add(B, y2, z2))
+    m3 = f2_mul(B, f2_add(B, x1, z1), f2_add(B, x2, z2))
+    t3 = f2_sub(B, m1, f2_add(B, t0, t1))
+    t4 = f2_sub(B, m2, f2_add(B, t1, t2))
+    y3 = _b3(B, f2_sub(B, m3, f2_add(B, t0, t2)))
+    x3 = f2_add(B, f2_dbl(B, t0), t0)
+    t2b = _b3(B, t2)
+    z3, t1b = f2_add(B, t1, t2b), f2_sub(B, t1, t2b)
+    return (f2_sub(B, f2_mul(B, t3, t1b), f2_mul(B, t4, y3)),
+            f2_add(B, f2_mul(B, t1b, z3), f2_mul(B, y3, x3)),
+            f2_add(B, f2_mul(B, z3, t4), f2_mul(B, x3, t3)))
+
+
+def g2_dbl(B, p):
+    """RCB Algorithm 9 over Fq2 (``points.complete_dbl``)."""
+    X, Y, Z = p
+    t0, t1, xy, zz = f2_sqr(B, Y), f2_mul(B, Y, Z), f2_mul(B, X, Y), f2_sqr(B, Z)
+    z3 = f2_dbl(B, f2_dbl(B, f2_dbl(B, t0)))
+    t2 = _b3(B, zz)
+    y3 = f2_add(B, t0, t2)
+    w = f2_sub(B, t0, f2_add(B, f2_dbl(B, t2), t2))
+    return (f2_dbl(B, f2_mul(B, w, xy)), f2_add(B, f2_mul(B, t2, z3), f2_mul(B, w, y3)),
+            f2_mul(B, t1, z3))
+
+
+def g2_neg(B, p):
+    return (p[0], f2_neg(B, p[1]), p[2])
+
+
+def psi(B, p):
+    """conj every coordinate; X by cx, Y by cy."""
+    X, Y, Z = p
+    return (f2_mul(B, f2_conj(B, X), _k2(B, _K_CX)), f2_mul(B, f2_conj(B, Y), _k2(B, _K_CY)),
+            f2_conj(B, Z))
+
+
+def psi2(B, p):
+    """psi(psi(P)) = (N(cx) X, N(cy) Y, Z)."""
+    X, Y, Z = p
+    return (f2_mul_fq(B, X, _k1(B, _K_NCX)), f2_mul_fq(B, Y, _k1(B, _K_NCY)), Z)
+
+
+def _g2_norm_body(B, p):
+    """N(Z) = Z.a^2 + Z.b^2 (the Fq value an affine conversion inverts)."""
+    return ([B.add(B.mul(p[4], p[4]), B.mul(p[5], p[5]))],)
+
+
+def _g2_affine_body(B, p, ninv):
+    """(X / Z, Y / Z) from N(Z)^-1: 1 / Z = conj(Z) N(Z)^-1."""
+    X, Y, Z = _pt(p)
+    zi = f2_mul_fq(B, f2_conj(B, Z), ninv[0])
+    return (_flat((f2_mul(B, X, zi), f2_mul(B, Y, zi))),)
+
+
+def _canon(B, x):
+    """The canonical (non-Montgomery) value: a product by the raw 1."""
+    return tuple(B.mul(c, _k1(B, _K_RAW1)) for c in x)
+
+
+def _h2c_front_body(B, u):
+    """SSWU's front on u: zu2 = Z u^2, tv = zu2^2 + zu2, the regular
+    x1 = N / D with N = -B (tv + 1), D = A tv, and u's canonical value
+    (for sgn0)."""
+    u = (u[0], u[1])
+    zu2 = f2_mul(B, _k2(B, _K_Z), f2_sqr(B, u))
+    tv = f2_add(B, f2_sqr(B, zu2), zu2)
+    Bk = _k2(B, _K_B)
+    N = f2_neg(B, f2_add(B, f2_mul(B, Bk, tv), Bk))
+    D = f2_mul(B, _k2(B, _K_A), tv)
+    return (_flat((zu2, tv, N, D, _canon(B, u))),)
+
+
+def _gx_num(B, N, D2, D3):
+    """x^3 + A x + B at x = N / D, times D^3: N (N^2 + A D^2) + B D^3."""
+    inner = f2_add(B, f2_sqr(B, N), f2_mul(B, _k2(B, _K_A), D2))
+    return f2_add(B, f2_mul(B, N, inner), f2_mul(B, _k2(B, _K_B), D3))
+
+
+def _h2c_gx_body(B, n, d, zu2):
+    """Both candidates over one denominator D: x1 = N / D and x2 = Z u^2 x1
+    = N2 / D.  g(x_i) = U_i / D^3 is a square exactly when W_i = U_i D is,
+    and y = sqrt(W_i) / D^2.  Outputs W1, W2, their norms (the square test
+    and the root's first ladder read them), N(D) and N2."""
+    N, D, z = (n[0], n[1]), (d[0], d[1]), (zu2[0], zu2[1])
+    N2 = f2_mul(B, z, N)
+    D2 = f2_sqr(B, D)
+    D3 = f2_mul(B, D2, D)
+    W = [f2_mul(B, _gx_num(B, x, D2, D3), D) for x in (N, N2)]
+    norms = [B.add(B.mul(w[0], w[0]), B.mul(w[1], w[1])) for w in W]
+    nD = B.add(B.mul(D[0], D[0]), B.mul(D[1], D[1]))
+    return (_flat((W[0], W[1])) + norms + [nD] + _flat(N2),)
+
+
+def _h2c_xy_body(B, s, n, d, ninv):
+    """The affine point of the chosen candidate: x = N / D and
+    y = s / D^2 (s the root of W), 1 / D = conj(D) N(D)^-1; with y's
+    canonical value (for sgn0)."""
+    s, N, D = (s[0], s[1]), (n[0], n[1]), (d[0], d[1])
+    di = f2_mul_fq(B, f2_conj(B, D), ninv[0])
+    y = f2_mul(B, s, f2_sqr(B, di))
+    return (_flat((f2_mul(B, N, di), y, _canon(B, y))),)
+
+
+def _h2c_iso_body(B, x, y, ka, kb):
+    """The 3-isogeny E' -> E2 (RFC 9380 E.3) to a projective point:
+    (x_num y_den : y y_num x_den : x_den y_den).  Horner chains; a monic
+    polynomial starts from x + c_(n-2)."""
+    k = list(ka) + list(kb)
+    x, y = (x[0], x[1]), (y[0], y[1])
+    polys, pos = [], 0
+    for tab in _iso_tables():
+        cs = [(k[pos + 2 * i], k[pos + 2 * i + 1]) for i in range(len(tab))]
+        pos += 2 * len(tab)
+        top = tab[-1]
+        lead = x if (top.a.n, top.b.n) == (1, 0) else f2_mul(B, cs[-1], x)
+        acc = f2_add(B, lead, cs[-2])
+        for c in reversed(cs[:-2]):
+            acc = f2_add(B, f2_mul(B, acc, x), c)
+        polys.append(acc)
+    xn, xd, yn, yd = polys
+    return (_flat((f2_mul(B, xn, yd), f2_mul(B, f2_mul(B, y, xd), yn), f2_mul(B, xd, yd))),)
+
+
+def _h2c_tail_body(B, t, r, q):
+    """The cofactor chain's end from t = [|x|]R, R = [x]Q - Q and Q:
+    ([x]R - Q) + (psi(R) + psi^2([2]Q)), as the plain version groups it."""
+    t, r, q = _pt(t), _pt(r), _pt(q)
+    s = g2_add(B, g2_neg(B, t), g2_neg(B, q))
+    u = g2_add(B, psi(B, r), psi2(B, g2_dbl(B, q)))
+    return (_flat(g2_add(B, s, u)),)
+
+
+# ---------------------------------------------------------------------------
+# K2's and K3's G2 doubling and addition as laid-out waves
+# ---------------------------------------------------------------------------
+# The hot steps (a lane's 128-bit double-and-add, the cofactor chain) run
+# as fixed four-level steps for a warp (``csrc/g2_team.cuh`` g2_step)
+# rather than through the program interpreter: wave 1 (one Fq product a
+# lane; its operands signed sums of the inputs' coordinates), the operands
+# of wave 2 (signed sums of wave 1's products, one a lane), wave 2
+# (products of two of them), the outputs (signed sums of wave 2's
+# products).  The tables are read off each step's team program (the
+# formulas ``g2_dbl``, ``g2_add`` above, scheduled for G2_TEAM), which must
+# be exactly those three levels.
+
+STEP_PRODUCT_WAVES = 2    # dependent product latencies of a step
+STEP_FQ = 54              # a step's scratch slots (csrc/g2_team.cuh G2_STEP_FQ)
+
+# name: the step's formulas over (P, Q), written as the tables G2S_<NAME>_*
+G2_STEPS = {
+    "dbl": lambda B, p, q: g2_dbl(B, p),
+    "add": lambda B, p, q: g2_add(B, p, q),
+    "add_neg": lambda B, p, q: g2_neg(B, g2_add(B, p, q)),
+}
+_STEPS = {}
+
+
+def g2_step(name: str) -> dict:
+    """A step's tables: ``wave1`` (pairs of operand forms over the input
+    slots, P's 0-5 and Q's 6-11), ``mids`` (forms over wave 1's
+    products), ``wave2`` (pairs of indices into ``mids``) and ``out``
+    (forms over wave 2's products); a form is ((index, coefficient), ...)."""
+    if name in _STEPS:
+        return _STEPS[name]
+    body = G2_STEPS[name]
+    prog = Program("g2_" + name, lambda B, p, q: (_flat(body(B, _pt(p), _pt(q))),),
+                   (6, 6), (6,), G2_TEAM, G2_CONSTS)
+    assert [{op[0] for op in lv} for lv in prog.levels] == [{MUL}, {MUL}, {LIN}], \
+        f"{name}: not two waves of products and the outputs' sums"
+    w1, w2, outs = prog.levels
+    at_in = {BIND * b + i: 6 * b + i for b in (0, 1) for i in range(6)}
+    at_w1 = {op[1]: i for i, op in enumerate(w1)}
+    at_w2 = {op[1]: i for i, op in enumerate(w2)}
+    form = lambda g, at: tuple((at[s], c) for s, c in g)
+    mids = []
+    for op in w2:
+        mids += [f for f in (form(g, at_w1) for g in op[2]) if f not in mids]
+    st = {"wave1": [tuple(form(g, at_in) for g in op[2]) for op in w1], "mids": mids,
+          "wave2": [tuple(mids.index(form(g, at_w1)) for g in op[2]) for op in w2],
+          "out": [form(op[2][0], at_w2) for op in sorted(outs, key=lambda op: op[1])]}
+    assert len(mids) <= G2_TEAM and len(w1) + len(mids) + len(w2) <= STEP_FQ
+    _STEPS[name] = st
+    return st
+
+
+# name: (body, input sizes, output sizes); team G2_TEAM, constants G2_CONSTS
+G2_PROGRAMS = {
+    "g2_norm": (_g2_norm_body, (6,), (1,)),
+    "g2_affine": (_g2_affine_body, (6, 1), (4,)),
+    "h2c_front": (_h2c_front_body, (2,), (10,)),
+    "h2c_gx": (_h2c_gx_body, (2, 2, 2), (9,)),
+    "h2c_xy": (_h2c_xy_body, (2, 2, 2, 1), (6,)),
+    "h2c_iso": (_h2c_iso_body, (2, 2, 16, 14), (6,)),
+    "h2c_tail": (_h2c_tail_body, (6, 6, 6), (6,)),
+}
+
+
+# ---------------------------------------------------------------------------
+# K3's ladder: a^((p - 3) / 4) by 4-bit sliding windows
+# ---------------------------------------------------------------------------
+# One thread's chain of squarings (ROADMAP D.2 would split a product).  c =
+# a^((p - 3) / 4) gives both a's square root candidate a c (a square when
+# (a c)^2 = a) and, for a non-zero square, its inverse c: 1 / (a c) = c.
+
+LADDER_EXP = (P - 3) // 4
+LADDER_W = 4
+K2_WIN = 4                # K2's sliding windows over its scalars (csrc/points.cu)
+
+
+def sliding_windows(e: int, w: int):
+    """MSB-first sliding windows of w bits over e > 0, as the kernels walk
+    them (K3's ladder, K2's scalars): (the first window's odd digit,
+    [(squarings or doublings, odd digit), ...], trailing squarings)."""
+    bits, i, steps, sq = bin(e)[2:], 0, [], 0
+    while i < len(bits):
+        if bits[i] == "0":
+            sq, i = sq + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        steps.append((sq + j - i, int(bits[i:j], 2)))
+        sq, i = 0, j
+    return steps[0][1], steps[1:], sq
+
+
+LADDER_FIRST, LADDER_STEPS, LADDER_TAIL = sliding_windows(LADDER_EXP, LADDER_W)
+# products of one ladder: a^2 and the odd powers a^3 .. a^(2^w - 1), then
+# the squarings and the window products
+LADDER_MULS = (1 << (LADDER_W - 1)) + sum(s + 1 for s, _ in LADDER_STEPS) + LADDER_TAIL
+
+
+def ladder(a: int) -> int:
+    """The kernel's ladder on a Montgomery-form int, product by product."""
+    mm = lambda x, y: x * y * R_INV % P
+    a2 = mm(a, a)
+    tab = [a]
+    for _ in range((1 << (LADDER_W - 1)) - 1):
+        tab.append(mm(tab[-1], a2))
+    acc = tab[LADDER_FIRST >> 1]
+    for sq, d in LADDER_STEPS:
+        for _ in range(sq):
+            acc = mm(acc, acc)
+        acc = mm(acc, tab[d >> 1])
+    for _ in range(LADDER_TAIL):
+        acc = mm(acc, acc)
+    return acc
+
+
+# ---------------------------------------------------------------------------
 # scheduling
 # ---------------------------------------------------------------------------
 
@@ -460,11 +781,13 @@ class Program:
     """A scheduled program: ``levels`` is a list of op lists, an op being
     (kind, out slot, groups) with groups (((slot, coefficient), ...), ...):
     one for a sum, two for a product.  NOPs pad a level so that op
-    ``i`` runs on thread ``i % TEAM``."""
+    ``i`` runs on thread ``i % team``; ``consts`` are the values of the
+    constant argument."""
 
-    def __init__(self, name, body, ins, outs):
+    def __init__(self, name, body, ins, outs, team=TEAM, consts=CONSTS):
         assert len(ins) + len(outs) <= CONST_BIND
         self.name, self.ins, self.outs = name, ins, outs
+        self.team, self.consts = team, consts
         B = Builder()
         args = [[B.leaf("in", BIND * b + i) for i in range(n)] for b, n in enumerate(ins)]
         results = body(B, *args)
@@ -498,7 +821,7 @@ class Program:
                 height[n] = cost + max((height[u] for u in users[n]), default=0.0)
         done = {n for n in order if not is_op(n)}
         pending = sorted(ops, key=lambda n: -height[n])
-        levels, T = [], TEAM                         # lists of node ids, NOPs as None
+        levels, T = [], self.team                    # lists of node ids, NOPs as None
         while pending:
             ready = [n for n in pending if all(o in done for o in _operands(desc[n]))]
             muls = [n for n in ready if desc[n][0] == "mul"][:T]
@@ -570,7 +893,7 @@ class Program:
             assert len(vals) == self.ins[b]
             for i, v in enumerate(vals):
                 mem[BIND * b + i] = v
-        for i, v in enumerate(CONSTS):
+        for i, v in enumerate(self.consts):
             mem[BIND * CONST_BIND + i] = v
         for level in self.levels:
             writes, reads, muls_on = {}, set(), set()
@@ -585,7 +908,7 @@ class Program:
                         acc += coef * mem[s]
                     vals.append(acc % P)
                 if kind == MUL:
-                    thread = pos % TEAM
+                    thread = pos % self.team
                     assert thread not in muls_on, "two products on one thread"
                     muls_on.add(thread)
                     v = vals[0] * vals[1] * R_INV % P
@@ -618,9 +941,19 @@ _CACHE = {}
 
 def program(name: str) -> Program:
     if name not in _CACHE:
-        body, ins, outs = PROGRAMS[name]
-        _CACHE[name] = Program(name, body, ins, outs)
+        if name in PROGRAMS:
+            body, ins, outs = PROGRAMS[name]
+            _CACHE[name] = Program(name, body, ins, outs)
+        else:
+            body, ins, outs = G2_PROGRAMS[name]
+            _CACHE[name] = Program(name, body, ins, outs, G2_TEAM, G2_CONSTS)
     return _CACHE[name]
+
+
+def product_levels(name: str) -> int:
+    """Levels of a program that hold a product: the dependent product
+    latencies of one run."""
+    return sum(1 for level in program(name).levels if any(op[0] == MUL for op in level))
 
 
 def header() -> str:
@@ -628,7 +961,7 @@ def header() -> str:
     tables (ops, each level's first op, each program's first level) and
     the temporaries each needs."""
     ops, terms, level0, prog0, tmps = [], [], [0], [0], []
-    names = list(PROGRAMS)
+    names = list(PROGRAMS) + list(G2_PROGRAMS)
     for name in names:
         p = program(name)
         for level in p.levels:
@@ -661,6 +994,30 @@ def header() -> str:
     lines.append(arr("uint32_t", "PP_PROGS", prog0))
     lines.append(arr("uint32_t", "PP_WEIGHT_P",
                      [((WEIGHT * P) >> (32 * i)) & 0xFFFFFFFF for i in range(13)]))
-    lines.append(arr("uint32_t", "PP_CONSTS",
-                     [(c >> (32 * i)) & 0xFFFFFFFF for c in CONSTS for i in range(12)]))
+    words = lambda vals: [(c >> (32 * i)) & 0xFFFFFFFF for c in vals for i in range(12)]
+    lines.append(arr("uint32_t", "PP_CONSTS", words(CONSTS)))
+    lines += [f"#define G2_TEAM {G2_TEAM}", f"#define G2_N_CONSTS {len(G2_CONSTS)}",
+              f"#define G2_K_B {_K_B}", f"#define G2_K_ZA {_K_ZA}",
+              f"#define ISO_N_COEFS {len(ISO_COEFS)}",
+              f"#define LADDER_W {LADDER_W}", f"#define LADDER_FIRST {LADDER_FIRST}",
+              f"#define K2_WIN {K2_WIN}", f"#define G2_STEP_FQ {STEP_FQ}",
+              f"#define LADDER_N_STEPS {len(LADDER_STEPS)}", f"#define LADDER_TAIL {LADDER_TAIL}"]
+    lines.append(arr("uint32_t", "G2_CONSTS", words(G2_CONSTS)))
+    lines.append(arr("uint32_t", "ISO_COEFS", words(ISO_COEFS)))
+    for name in G2_STEPS:
+        st, tag = g2_step(name), f"G2S_{name.upper()}"
+        terms = [max(len(t) for pair in st["wave1"] for t in pair),
+                 max(len(t) for t in st["mids"]), max(len(t) for t in st["out"])]
+
+        def pad(t, n):
+            return [slot | (c & 0xFF) << 8 for slot, c in t] + [0] * (n - len(t))
+        lines += [f"#define {tag}_SIZES {len(st['wave1'])}, {len(st['mids'])}, "
+                  f"{len(st['wave2'])}, {terms[0]}, {terms[1]}, {terms[2]}"]
+        lines.append(arr("uint16_t", f"{tag}_W1",
+                         [w for pair in st["wave1"] for t in pair for w in pad(t, terms[0])]))
+        lines.append(arr("uint16_t", f"{tag}_MID", [w for t in st["mids"] for w in pad(t, terms[1])]))
+        lines.append(arr("uint8_t", f"{tag}_W2", [i for pair in st["wave2"] for i in pair]))
+        lines.append(arr("uint16_t", f"{tag}_OUT", [w for t in st["out"] for w in pad(t, terms[2])]))
+    lines.append(arr("uint8_t", "LADDER_SQ", [sq for sq, _ in LADDER_STEPS]))
+    lines.append(arr("uint8_t", "LADDER_DIGIT", [d for _, d in LADDER_STEPS]))
     return "\n".join(lines) + "\n"

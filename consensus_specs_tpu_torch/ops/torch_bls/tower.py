@@ -1,7 +1,8 @@
 """Extension towers Fq2/Fq6/Fq12, plain PyTorch version.
 
-Counterpart of ``consensus_specs_tpu/ops/jax_bls/tower.py``; the CUDA
-counterpart is ``csrc/tower.cuh``.  Same tower as the oracle
+Counterpart of ``consensus_specs_tpu/ops/jax_bls/tower.py``; on the card
+the tower's products are team programs (``team_programs.py``, run by
+``csrc/pairing_team.cuh`` and ``csrc/g2_team.cuh``).  Same tower as the oracle
 (``ops/bls12_381/fields.py``): Fq2 = Fq[u]/(u^2+1), Fq6 = Fq2[v]/(v^3-xi)
 with xi = 1+u, Fq12 = Fq6[w]/(w^2-v).
 
@@ -26,8 +27,9 @@ from . import limbs as L
 # products (a square two); a product by a sparse line c0 + c3 w^3 +
 # c5 w^5 takes 13 Fq2 products; Granger-Scott cyclotomic squaring nine
 # Fq2 squares; a Frobenius map five Fq2 products by constants; an
-# inversion its norm's products (the Fq inversion none, see
-# ``limbs.SQRT_MULS``).
+# inversion its norm's products (the Fq inversion none: the binary
+# extended Euclid of ``csrc/fq_inv.cuh`` makes it with additions and
+# shifts).
 F2_MUL, F2_SQR = 3, 2
 F2_INV = 2 * 2
 F6_MUL = 6 * F2_MUL
