@@ -7,10 +7,12 @@ Altair block and an Altair epoch transition (the epochs and the cold and
 post-epoch roots through the mesh engine), time.
 
     python3 chip_smoke.py [--validators N]
-    python3 chip_smoke.py --probe [--root DIR] [--sweep RUNS]
+    python3 chip_smoke.py --probe [--root DIR] [--only K1,K18,...] [--sweep RUNS]
 
-``--probe`` runs no phase: it times K3 and K2 at every batch size the
-block paths launch them with, K7 at every shape of the blob and
+``--probe`` runs no phase: it times K1, K3 and K2 at every batch size
+the block paths launch them with (K1 with scalars and without), K18 at
+2^14, 2^16, 2^18 and 2^20 leaves (and at every CTA size where the tree
+takes one), K7 at every shape of the blob and
 sampling paths, K4 at the block flush's, the per-lane batch's and the
 blob and cell verifies' shapes, K8 at the path's three shapes (with its
 stages) and K15 at the epoch engine's max-only and rewards calls beside
@@ -35,16 +37,19 @@ Phases, each fatal on failure (no phase's failure is caught):
    the torch backend (one product pairing), the per-lane batch verify, a
    bad signature named by ``last_results``, and AggregateVerify over 16
    messages;
-4. hold K3 and K2 against their plain versions and the oracle on edge
-   inputs (K3: u = 0, a real u, u's whose maps take x1 and x2 in either
-   half; K2: an all-infinity batch, lanes P and -P, zero scalars and a
-   repeated signature, one lane), then each kernel byte-identical to its
+4. hold K1, K3 and K2 against their plain versions and the oracle on
+   edge inputs (K1: rows of 0, 1 and 90 keys, P and -P, a repeated key,
+   keys cancelling across teams, with the scalars 0, 1, 2^128 - 1, a
+   single set bit, long runs of ones and of zeros, and none; K3: u = 0, a
+   real u, u's whose maps take x1 and x2 in either half; K2: an
+   all-infinity batch, lanes P and -P, zero scalars and a repeated
+   signature, one lane), then each kernel byte-identical to its
    plain version again at every shape the block gave it (the flush's and
    the per-lane batch's calls; K4's GT values too, and on the flush with
    one pair's P negated), then time each kernel at the flush's shapes
-   (CUDA events, after one warm-up) beside its plain version, its bound
-   and (K2, K3) its chain floor, and time the block flush and the
-   128-lane batch;
+   (CUDA events, after one warm-up; K1 also at the per-lane batch's)
+   beside its plain version, its bound and (K1-K3) its chain floor, and
+   time the block flush and the 128-lane batch;
 5. hold K5 ``hash64`` and K6 ``sha256_blocks`` byte-identical to their
    plain versions on the card and to hashlib, on seeded rows (n = 1, 3,
    255, 256, 257, 4096) and on 1-, 2- and 5-block messages;
@@ -169,10 +174,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    sentinel, a cap overflow, every lane a candidate), and K18
    ``merkle_levels`` to its plain version and every level to hashlib on
    leaf layers of 2^14 - 1, 2^14, 2^14 + 1, 3 x 2^13 + 5 and 2^20 chunks
-   with S = 1 and 4, ``build_levels`` to the sequential build and a
-   span-built tree updated incrementally to a fresh build;
-16. time K15-K18 per launch at the main path's calls (CUDA events,
-   queued ahead) beside their bounds, plain versions and, where one
+   with S = 1 and 4, at every width from 2^14 to 2^20 leaves with S = 1, 2
+   and 4 (the wrapper's plans), and every level to hashlib at depths 1 to
+   14 with S = 1, 2 and 4 and CTAs of 32 to 512 threads (one to four
+   tiers),
+   ``build_levels`` to the sequential build and a span-built tree
+   updated incrementally to a fresh build;
+16. time K15-K18 per launch (K18: per tree, one launch) at the main
+   path's calls (CUDA events, queued ahead) beside their bounds (K18 also
+   its chain floor), plain versions and, where one
    PyTorch call computes the same function, that call, and an empty
    launch; print the ``kernels`` line (K1-K18, every number measured in
    this run but the bounds; K8 with its per-stage times at the
@@ -951,6 +961,58 @@ def sswu_square(u) -> bool:
     tv = zu2.square() + zu2
     x1 = B * (Z * A).inv() if tv.is_zero() else (-B) * A.inv() * (Fq2.one() + tv.inv())
     return (x1.square() * x1 + A * x1 + B).is_square()
+
+
+K1_EDGE_SCALARS = (0, 1, (1 << 128) - 1, 1 << 77,                  # a single set bit
+                   ((1 << 128) - 1) ^ (((1 << 70) - 1) << 30),     # long runs of ones, zeros
+                   0x5A5A_0000_0000_FFFF_FFFF_0000_0001_8000)
+
+
+def k1_edges(torch, dev) -> int:
+    """K1 on rows of 0, 1 and N = 90 keys (the 40 teams hold 2 or 3), a row
+    P, -P (the identity), a key repeated 7 times and 82 keys that cancel in
+    pairs across teams, with the scalars 0, 1, 2^128 - 1, a single set bit,
+    long runs of ones and of zeros and a mixed one (each row meeting two of
+    them), and without scalars.  Each call against its plain version and
+    the oracle.  Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR, G1Point
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    from consensus_specs_tpu_torch.ops.torch_bls import points
+    n = 90
+    keys = [G1_GENERATOR.mult(v) for v in field_elements(b"k1-edges", 50, 1 << 64)]
+    rows = [[], [keys[0]], [keys[i % 50] for i in range(n)], [keys[1], -keys[1]],
+            [keys[2]] * 7, [keys[i] for i in range(41)] + [-keys[i] for i in range(41)]]
+    pk = torch.zeros((len(rows), n, 2, 12), dtype=torch.int32)
+    for i, r in enumerate(rows):
+        if r:
+            pk[i, :len(r)] = C.pack_g1(r)[0]
+    cnt = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+    pk = pk.to(dev)
+    sums = []
+    for r in rows:
+        acc = G1Point.inf()
+        for p in r:
+            acc = acc + p
+        sums.append(acc)
+    err = 0
+    for shift in (None, 0, 3):
+        sc, want = None, [p.to_compressed() for p in sums]
+        if shift is not None:
+            ks = [K1_EDGE_SCALARS[(i + shift) % len(K1_EDGE_SCALARS)] for i in range(len(rows))]
+            raw = b"".join(v.to_bytes(16, "little") for v in ks)
+            sc = torch.from_numpy(np.frombuffer(raw, dtype=np.int32).reshape(-1, 4).copy()).to(dev)
+            want = [p.mult(k).to_compressed() for p, k in zip(sums, ks)]
+        got = points.g1_aggregate_scale(pk, cnt, sc)
+        tag = "no scalars" if shift is None else f"scalars shifted by {shift}"
+        err = max(err, compare(torch, f"K1 (edges, {tag})", got,
+                               points.g1_aggregate_scale_plain(pk, cnt, sc)))
+        check([p.to_compressed() for p in C.unpack_g1(*got)] == want,
+              f"K1 differs from the oracle on the edge rows ({tag})")
+    print(f"check K1 edges: rows of {[len(r) for r in rows]} keys (P and -P, a repeated key, "
+          f"82 cancelling keys), scalars 0, 1, 2^128 - 1, 2^77, long runs, and none: equal to "
+          f"the plain version and the oracle")
+    return err
 
 
 def k2_k3_edges(torch, dev) -> int:
@@ -2449,11 +2511,10 @@ COLD_K5 = {1 << 20: 17}     # K5 launches of phase 6's cold root, at the default
 def k18_expect(chunks) -> tuple:
     """(sorted leaf widths, K18 launches) of the span builds that trees of
     these leaf chunk counts take: those the span build engages (the floor),
-    each padded to a power of two, ceil(log2(width) / 10) launches each."""
-    from consensus_specs_tpu_torch.parallel import mesh_merkle as mm
+    each padded to a power of two, one launch each."""
     from consensus_specs_tpu_torch.parallel import mesh_state
     widths = sorted(1 << (c - 1).bit_length() for c in chunks if mesh_state.merkle_engaged(c))
-    return widths, sum(-(-(w.bit_length() - 1) // mm.LEVELS_PER_LAUNCH) for w in widths)
+    return widths, len(widths)
 
 
 def k18_check(tag: str, calls: list, launches: int, chunks) -> None:
@@ -2667,6 +2728,43 @@ def merkle_checks(torch, dev, n_lanes: int) -> int:
                   f"build_levels differs from the sequential build (count={count}, S={spans})")
     check(mm.build_levels(b"\x01" * 32 * 3, 40, 4) is None,
           "a span build below 2 x S must decline")
+    # every width the main path launches (2^14 to 2^20 leaves: the
+    # wrapper's plans) against the plain version (once a width: the levels
+    # of S spans are the first N - S of one span's) and hashlib, and
+    # depths 1 to 14 with CTAs of 32 to 512 threads (one to four tiers,
+    # depths off every tier's multiple; the first tier folding k - 5 and k
+    # levels, as launch_plan picks) against hashlib
+    cases = [(1 << d, s, None, None) for d in range(14, (n_lanes - 1).bit_length() + 1)
+             for s in (1, 2, 4)]
+    for t in (32, 64, 128, 256, 512):
+        k = (2 * t).bit_length() - 1
+        cases += [(s << d, s, t, f) for d in range(1, 15) for s in (1, 2, 4)
+                  for f in ((k - mm.LOG_KEEP, k) if d > k else (k,))]
+    levels = {}
+    for n, spans, threads, first in cases:
+        if n not in levels:
+            leaves = hashlib.shake_256(SEED + b"widths" + n.to_bytes(4, "little")).digest(32 * n)
+            want, level = [], leaves
+            while len(level) > 32:
+                level = b"".join(hashlib.sha256(level[i:i + 64]).digest()
+                                 for i in range(0, len(level), 64))
+                want.append(level)
+            t = torch.frombuffer(bytearray(leaves), dtype=torch.uint8).view(n, 32).to(dev)
+            levels[n] = (t, want, None)
+        t, want, plain = levels[n]
+        depth = mm.merkle_levels_chain(n, spans)
+        th, plan = (threads, mm.tiers(depth, threads, first)) if threads \
+            else mm.launch_plan(n, depth)
+        got = mm._launch(t, th, plan) if threads else mm.merkle_levels(t, spans)
+        tag = f"{n} leaves, S={spans}, {th} threads, tiers {plan}"
+        if threads is None:
+            if plain is None:
+                plain = mm.merkle_levels_plain(t)
+                levels[n] = (t, want, plain)
+            err = max(err, compare(torch, f"K18 ({tag})", got, plain[:n - spans]))
+        check(got.cpu().numpy().tobytes() == b"".join(want[:depth]),
+              f"K18 differs from hashlib ({tag})")
+    del levels
     # the routed tree, updated after its span build, equals a fresh build
     count = MERKLE_COUNTS[2]
     raw = bytearray(hashlib.shake_256(SEED + b"update").digest(32 * count))
@@ -2681,8 +2779,11 @@ def merkle_checks(torch, dev, n_lanes: int) -> int:
           "an IncrementalTree updated after a span build differs from a fresh build")
     mesh_state.use_auto()
     torch.cuda.synchronize()
-    print(f"kernel checks: K18 at {list(MERKLE_COUNTS) + [n_lanes]} leaves, S = 1 and 4, "
-          f"byte-identical to its plain version on the card and every level to hashlib; "
+    print(f"kernel checks: K18 at {list(MERKLE_COUNTS) + [n_lanes]} leaves, S = 1 and 4, at "
+          f"2^14 to 2^{(n_lanes - 1).bit_length()} leaves with S = 1, 2 and 4 (the wrapper's "
+          f"plans), byte-identical to its plain version on the card and every level to "
+          f"hashlib, and at depths 1 to 14 with S = 1, 2 and 4 and CTAs of 32 to 512 threads "
+          f"equal to hashlib; "
           f"build_levels equal to the sequential build; an updated span-built tree equal to a "
           f"fresh build ({time.perf_counter() - t0:.1f} s)")
     return err
@@ -2738,8 +2839,7 @@ def mesh_entry(torch, card, name, call, launches: dict, err: int, library=None,
              "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
              "library_ms": lib_ms, "bytes": nbytes, "ops": ops}
     entry.update(extra or {})
-    per = "per launch" if name != "merkle_levels" else \
-        f"per call ({-(-(args[0].shape[0].bit_length() - 1) // 10)} launches)"
+    per = "per launch" if name != "merkle_levels" else "per call (one launch)"
     print(f"time {name}: {ms:.4f} ms {per} queued ahead (plain on the card {p_ms:.3f} ms, "
           f"library {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
           f"{max(b_ms, o_ms):.5f} ms: bytes {nbytes} -> {b_ms:.5f} ms, operations {ops} -> "
@@ -2756,7 +2856,9 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
     on a prefilled column; ``torch.nonzero`` of each family's mask); K18
     at the largest call of phase 6's cold root (library: none).  ``run``:
     phase 10's leaking run; ``launches``: {kernel: {path: launches}}."""
+    from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.parallel import mesh_epoch as me
+    from consensus_specs_tpu_torch.parallel import mesh_merkle as mm
     out = []
     calls = run["calls"]["epoch_reduce"]
     kws = run["kwargs"]["epoch_reduce"]
@@ -2787,10 +2889,18 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
                           err["registry_scan"], lambda: [torch.nonzero(f) for f in fams]))
     big = max(merkle_calls, key=lambda c: c[0][0].shape[0])
     rows = int(big[0][0].shape[0])
+    # the launches of one call, counted: the counter is zeroed, the call
+    # made once untimed, and the counter read after it
+    _build.launches["merkle_levels"] = 0
+    mm.merkle_levels(*big[0])
+    torch.cuda.synchronize()
+    per_call = _build.launches["merkle_levels"]
+    _build.launches["merkle_levels"] = 0
+    check(per_call == 1, f"K18: one launch a tree, but the timed call made {per_call}")
     out.append(mesh_entry(torch, card, "merkle_levels", (big[0], {}), launches["merkle_levels"],
                           err["merkle_levels"], None,
-                          {"leaves": rows, "ms_is_per": "call",
-                           "launches_per_call": -(-(rows.bit_length() - 1) // 10)}))
+                          {"leaves": rows, "ms_is_per": "call", "launches_per_call": per_call,
+                           "chain_hashes": mm.merkle_levels_chain(rows)}))
     return out
 
 
@@ -2944,6 +3054,75 @@ def probe_k2(torch, dev) -> dict:
     return out
 
 
+PROBE_K1_SHAPES = ((4, "phase 2"), (130, "phase0 block"),
+                   (131, "block flush, per-lane batch, Altair block"))
+PROBE_K18_WIDTHS = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
+
+
+def probe_k1(torch, dev) -> dict:
+    """K1 at every row count the paths launch it with, on rows of 512 keys
+    (64 seeded keys [a_i] G1 cycled; the last two rows of one key, as a
+    block's proposer and randao items), with uniform 128-bit scalars (the
+    flush, the blocks) and without (the per-lane batch): each call held
+    against the plain version first, then device ms per call queued
+    ahead."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1_GENERATOR
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    from consensus_specs_tpu_torch.ops.torch_bls import points
+    keys = C.pack_g1([G1_GENERATOR.mult(v) for v in field_elements(b"probe-k1", 64, 1 << 64)])[0]
+    pk = keys[torch.arange(131 * COMMITTEE) % 64].view(131, COMMITTEE, 2, 12).to(dev)
+    raw = b"".join(v.to_bytes(16, "little") for v in field_elements(b"probe-k1-scalars", 131,
+                                                                      1 << 128))
+    sc = torch.from_numpy(np.frombuffer(raw, dtype=np.int32).reshape(131, 4).copy()).to(dev)
+    out = {}
+    for n, tag in PROBE_K1_SHAPES:
+        cnt = torch.full((n,), COMMITTEE, dtype=torch.int32)
+        cnt[-2:] = 1
+        for scaled in (True, False):
+            args = (pk[:n].contiguous(), cnt, sc[:n].contiguous() if scaled else None)
+            compare(torch, f"K1 (probe, {n} rows, scalars {scaled})",
+                    points.g1_aggregate_scale(*args), points.g1_aggregate_scale_plain(*args))
+            out[f"{n} {'scaled' if scaled else 'sum'}"] = {
+                "path": tag, "queued_ms": queued_ms(torch,
+                                                    lambda: points.g1_aggregate_scale(*args), 10)}
+    return out
+
+
+def probe_k18(torch, dev) -> dict:
+    """K18 on seeded leaves at 2^14, 2^16, 2^18 and 2^20 chunks (the widths
+    of the cold roots' and the commits' trees), one span: each call held
+    against the plain version first, then device ms per call queued ahead
+    (the counters' zeroing included); where the wrapper takes a CTA size
+    (``_launch``), its plan and, each equal to the wrapper's output, CTAs
+    of 64 to 512 threads with the first tier folding k - 5 and k levels,
+    and a ``torch.zeros`` of 129 counters alone."""
+    from consensus_specs_tpu_torch.parallel import mesh_merkle as mm
+    out = {}
+    for n in PROBE_K18_WIDTHS:
+        raw = hashlib.shake_256(SEED + b"probe-k18" + n.to_bytes(4, "little")).digest(32 * n)
+        t = torch.frombuffer(bytearray(raw), dtype=torch.uint8).view(n, 32).to(dev)
+        got = mm.merkle_levels(t)
+        compare(torch, f"K18 (probe, {n} leaves)", got, mm.merkle_levels_plain(t))
+        out[n] = {"queued_ms": queued_ms(torch, lambda: mm.merkle_levels(t), 20)}
+        if not hasattr(mm, "_launch"):
+            continue
+        depth = n.bit_length() - 1
+        th, plan = mm.launch_plan(n, depth)
+        out[n].update(threads=th, plan=plan)
+        for th in (64, 128, 256, 512):
+            k = (2 * th).bit_length() - 1
+            for first in (k - mm.LOG_KEEP, k):
+                plan = mm.tiers(depth, th, first)
+                compare(torch, f"K18 (probe, {n} leaves, {th} threads, plan {plan})",
+                        mm._launch(t, th, plan), got)
+                out[n][f"ms_{th}_{first}"] = queued_ms(
+                    torch, lambda: mm._launch(t, th, plan), 20)
+        out[n]["zeros_ms"] = queued_ms(torch, lambda: torch.zeros((129,), dtype=torch.int32,
+                                                                  device=dev), 20)
+    return out
+
+
 def probe_k15(torch, dev) -> dict:
     """K15 on seeded 2^20-lane registry columns, one span, at the epoch
     engine's effective-balance call (maxima alone) and its phase0 and
@@ -3055,7 +3234,11 @@ def probe_sweep(torch, dev, runs: int) -> dict:
         bls.bls_active = True
 
 
-def probe_main(torch, card: str, root: str, runs: int) -> int:
+PROBES = {"k1": probe_k1, "k18": probe_k18, "k3": probe_k3, "k2": probe_k2, "k7": probe_k7,
+          "k4": probe_k4, "k8": probe_k8, "k15": probe_k15}
+
+
+def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
     from consensus_specs_tpu_torch import _build
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -3063,21 +3246,23 @@ def probe_main(torch, card: str, root: str, runs: int) -> int:
     for lib, text in sorted(_build.ptxas_report.items()):
         for line in ptxas_summary(text):
             print(f"ptxas {lib}.cu: {line}")
-    result = {"root": root, "card": card, "build_s": time.perf_counter() - t0,
-              "k3": probe_k3(torch, dev), "k2": probe_k2(torch, dev),
-              "k7": probe_k7(torch, dev), "k4": probe_k4(torch, dev),
-              "k8": probe_k8(torch, dev), "k15": probe_k15(torch, dev)}
-    for name in ("k3", "k2"):
-        for n, v in result[name].items():
+    result = {"root": root, "card": card, "build_s": time.perf_counter() - t0}
+    for name, probe in PROBES.items():
+        if only is None or name in only:
+            result[name] = probe(torch, dev)
+    for name in ("k1", "k3", "k2"):
+        for n, v in result.get(name, {}).items():
             print(f"{name.upper()} {n} ({v['path']}): {v['queued_ms']:.4f} ms per call queued "
                   f"ahead on {card}")
-    for n, ms in result["k7"].items():
+    for n, v in result.get("k18", {}).items():
+        print(f"K18 {n} leaves: {json.dumps(v)} (ms per call queued ahead) on {card}")
+    for n, ms in result.get("k7", {}).items():
         print(f"K7 N={n}: {ms:.4f} ms per call queued ahead on {card}")
-    for tag, v in result["k4"].items():
+    for tag, v in result.get("k4", {}).items():
         print(f"K4 {tag}: {json.dumps(v)} on {card}")
-    for tag, v in result["k8"].items():
+    for tag, v in result.get("k8", {}).items():
         print(f"K8 {tag}: {json.dumps(v)} on {card}")
-    for name, ms in result["k15"].items():
+    for name, ms in result.get("k15", {}).items():
         print(f"K15 {name}: {ms:.5f} ms per call queued ahead on {card}")
     if runs:
         result["sweep"] = probe_sweep(torch, dev, runs)
@@ -3091,15 +3276,21 @@ def main(argv=None) -> int:
     ap.add_argument("--validators", type=int, default=VALIDATORS,
                     help="active validators of the phase0 and Altair states (default 2^20)")
     ap.add_argument("--probe", action="store_true",
-                    help="time K3, K2, K7, K4, K8 and K15 through their wrappers instead of "
-                         "the phases")
+                    help="time K1, K18, K3, K2, K7, K4, K8 and K15 through their wrappers "
+                         "instead of the phases")
     ap.add_argument("--root", default=None,
                     help="with --probe: a checkout of the port inside this one to measure")
+    ap.add_argument("--only", default=None, metavar="K1,K18,...",
+                    help="with --probe: time only these kernels (of K1, K18, K3, K2, K7, K4, "
+                         "K8, K15)")
     ap.add_argument("--sweep", type=int, default=0, metavar="RUNS",
                     help="with --probe: the engine sweep, the least of RUNS runs each")
     opts = ap.parse_args(argv)
-    if (opts.root or opts.sweep) and not opts.probe:
-        ap.error("--root and --sweep go with --probe")
+    if (opts.root or opts.sweep or opts.only) and not opts.probe:
+        ap.error("--root, --only and --sweep go with --probe")
+    only = None if opts.only is None else {k.strip().lower() for k in opts.only.split(",")}
+    if only is not None and not only <= set(PROBES):
+        ap.error(f"--only: kernels of {sorted(PROBES)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3116,7 +3307,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's package is missing ({exc})", file=sys.stderr)
         return 2
     if opts.probe:
-        return probe_main(torch, card_line(), os.path.relpath(root, here), opts.sweep)
+        return probe_main(torch, card_line(), os.path.relpath(root, here), opts.sweep, only)
     from consensus_specs_tpu_torch.ops import bls_torch, bls_rlc
     from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
     from consensus_specs_tpu_torch.ops.bls12_381 import hash_to_curve as OH
@@ -3333,13 +3524,16 @@ def main(argv=None) -> int:
         "pairing_check": ("consensus_specs_tpu_torch/csrc/pairing.cu",
                           "consensus_specs_tpu/ops/jax_bls/pairing.py:452"),
     }
-    edge_err = k2_k3_edges(torch, cu)
-    chain = {"g2_scale_sum": lambda sig, sig_inf, sc: points.g2_scale_sum_chain(sig_inf, sc),
+    edge_err = {"g1_aggregate_scale": k1_edges(torch, cu)}
+    edge_err["g2_scale_sum"] = edge_err["hash_to_g2"] = k2_k3_edges(torch, cu)
+    chain = {"g1_aggregate_scale": lambda pk, counts, sc=None:
+             points.g1_aggregate_scale_chain(counts, sc),
+             "g2_scale_sum": lambda sig, sig_inf, sc: points.g2_scale_sum_chain(sig_inf, sc),
              "hash_to_g2": lambda u: htc.hash_to_g2_chain()}
     kernels = []
     for name in KERNELS:
         fn = originals[name]
-        err, p_ms = (edge_err if name in chain else 0), None
+        err, p_ms = edge_err.get(name, 0), None
         for which in ("flush", "lanes"):
             if (which, name) not in recorded:
                 continue
@@ -3370,6 +3564,11 @@ def main(argv=None) -> int:
             "library_ms": None, "fq_products": fq})
         if name in chain:
             kernels[-1]["chain_fq_products"] = chain[name](*args)
+        if name == "g1_aggregate_scale":        # the per-lane batch's call: no scalars
+            lane_args = recorded[("lanes", name)]
+            kernels[-1].update(lanes_ms=cuda_ms(torch, lambda: fn(*lane_args)),
+                               lanes_chain_fq_products=chain[name](*lane_args),
+                               lanes_shapes=[tuple(t.shape) for t in lane_args])
         print(f"time {name}: {k_ms:.3f} ms (plain {p_ms:.1f} ms, bound {b_ms:.5f} ms "
               f"from {fq} Fq products"
               + (f"; chain floor {kernels[-1]['chain_fq_products']} dependent Fq products"

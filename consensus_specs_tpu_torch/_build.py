@@ -87,7 +87,6 @@ def constants_header() -> str:
            f"#define BLS_N0 0x{n0:08x}u",
            f"#define BLS_ONE_WORDS {_words(_mont(1))}",
            f"#define BLS_R3_WORDS {_words(pow(2, 3 * 384, P))}",
-           f"#define BLS_EXP_INV {_words(P - 2)}",
            f"#define BLS_B3_G1_WORDS {_words(_mont(12))}",
            f"#define BLS_ABS_X 0x{-_F.X_PARAM:016x}ull",
            f"#define BLS_R_WORDS {_words(R, 8)}",
@@ -212,7 +211,8 @@ _SIGS = {
     "incl_scan": [_VP, _VP, ctypes.c_longlong, _VP, ctypes.c_longlong, ctypes.c_int, _VP],
     "registry_scan": [_VP] * 4 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_ulonglong] * 5
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [_VP] * 5,
-    "merkle_levels": [_VP, _VP, ctypes.c_longlong, ctypes.c_int, _VP],
+    "merkle_levels": [_VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_ulonglong, _VP],
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
          "hash_to_g2": "htc", "pairing_check": "pairing",

@@ -1,8 +1,7 @@
 // Fq, the BLS12-381 base field: 12 x 32-bit little-endian limbs in
-// Montgomery form (R = 2^384), CIOS multiplication on 32x32->64
-// multiply-adds, and a fixed-exponent ladder for K1's inverse (the other
-// kernels invert by fq_inv.cuh's binary extended Euclid).  Every input and
-// output is fully reduced (< p).
+// Montgomery form (R = 2^384) and CIOS multiplication on 32x32->64
+// multiply-adds (the kernels invert by fq_inv.cuh's binary extended
+// Euclid).  Every input and output is fully reduced (< p).
 //
 // Replaces the JAX package's ops/jax_bls/limbs.py, whose 24 x 16-bit limbs
 // with f32 column sums exist only because the TPU lacks a 64-bit integer
@@ -21,7 +20,6 @@ struct Fq {
 DCONST uint32_t FQ_P[NW] = BLS_P_WORDS;
 DCONST Fq FQ_ONE = {BLS_ONE_WORDS};
 DCONST Fq FQ_B3 = {BLS_B3_G1_WORDS};
-DCONST uint32_t EXP_INV[NW] = BLS_EXP_INV;
 
 DEV void fq_zero(Fq& r) {
 #pragma unroll
@@ -135,26 +133,11 @@ DEV void fq_mul(Fq& r, const Fq& a, const Fq& b) {
 
 DEV void fq_sqr(Fq& r, const Fq& a) { fq_mul(r, a, a); }
 
-// a^e for a public 384-bit exponent, MSB-first square-and-multiply.
-// a == 0 gives 0 for e > 0 (so inv(0) == 0, as in the JAX ladder).
-DEVNI void fq_pow(Fq& r, const Fq& a, const uint32_t* e) {
-  Fq acc;
-  fq_set(acc, FQ_ONE);
-  bool started = false;
-  for (int w = NW - 1; w >= 0; w--) {
-    uint32_t word = e[w];
-    for (int b = 31; b >= 0; b--) {
-      if (started) fq_sqr(acc, acc);
-      if ((word >> b) & 1u) {
-        fq_mul(acc, acc, a);
-        started = true;
-      }
-    }
-  }
-  fq_set(r, acc);
-}
-
-DEV void fq_inv(Fq& r, const Fq& a) { fq_pow(r, a, EXP_INV); }
+// The product out of line: one copy serves every step of a kernel whose
+// steps, each with its products inlined, would outgrow the SM's
+// instruction cache (every SM then refills it from L2 at once, and the
+// kernel slows with the number of live blocks).
+DEVNI void fq_mul_out(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
 
 DEV void fq_load(Fq& r, const uint32_t* src) {
 #pragma unroll

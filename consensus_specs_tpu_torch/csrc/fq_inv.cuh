@@ -1,12 +1,14 @@
 // Fq inversion by the binary extended Euclidean algorithm (Guide to
-// Elliptic Curve Cryptography, Algorithm 2.22), for K8's one inversion.
+// Elliptic Curve Cryptography, Algorithm 2.22): the one inversion of K1,
+// K2, K3, K4 and K8 each.
 //
-// fq_inv's Fermat ladder is 381 squarings and ~190 products in a chain:
-// in one thread it is the longest serial stretch of an MSM.  This loop
-// takes ~1,100 shifts and subtractions of 12-word numbers instead, with
-// no product but the final conversion.  Its running time depends on the
-// value, which is public in an MSM (commitments and proofs of public
-// data); the result is the unique inverse, so it equals fq_inv's.
+// A Fermat ladder (a^(p - 2)) is 381 squarings and ~190 products in a
+// chain: in one thread it was the longest serial stretch of a kernel.
+// This loop takes ~1,100 shifts and subtractions of 12-word numbers
+// instead, with no product but the final conversion.  Its running time
+// depends on the value, which is public here (aggregates of public keys,
+// signatures, commitments and proofs of public data); the result is the
+// unique inverse.  a = 0 never ends: callers keep the identity out.
 #pragma once
 #include "fq.cuh"
 

@@ -68,12 +68,11 @@ DEV PPBind g2_bind(Fq* k, Fq* a0, Fq* a1 = nullptr, Fq* a2 = nullptr, Fq* a3 = n
   return b;
 }
 
-// The steps' product and sum, each out of line: one copy of each serves
-// every step, so the double-and-add loop's code stays in the SM's
-// instruction cache.  Inlined at every site (six products, nine sums) it
-// did not, and with every SM refilling it from L2 at once K2 slowed with
-// the number of live lanes.
-DEVNI void fq_mul_out(Fq& r, const Fq& a, const Fq& b) { fq_mul(r, a, b); }
+// The steps' product (fq.cuh fq_mul_out) and sum, each out of line: one
+// copy of each serves every step, so the double-and-add loop's code stays
+// in the SM's instruction cache.  Inlined at every site (six products,
+// nine sums) it did not, and with every SM refilling it from L2 at once
+// K2 slowed with the number of live lanes.
 
 // r = the sum of n terms (slot | coefficient << 8) of slots x (the slots
 // from `split` on: y + (slot - split)), fully reduced (pp_accumulate)

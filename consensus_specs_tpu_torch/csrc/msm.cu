@@ -17,9 +17,9 @@
 // products), eight teams a warp; the running point stays in shared memory,
 // and each warp writes its eight points' window entry (8 x 36 contiguous
 // words) as one coalesced store of 32 lanes.  The projective output is the
-// one pt_dbl computes (the same formulas, every value fully reduced), so
-// the table is byte-identical to one thread's chain of pt_dbl.  A team of
-// four, not K8's six: team_dbl has four products a wave.
+// one the plain version's complete_dbl computes (the same formulas, every
+// value fully reduced), so the table is byte-identical to the plain one.
+// A team of four, not K8's six: team_dbl has four products a wave.
 //
 // K8 is Pippenger's bucket method over that table.  Every (window, point)
 // lane shares one set of 255 buckets (the table already carries the
@@ -79,8 +79,8 @@
 #define DIGIT_BITS 8
 #define HIST_THREADS 256       // == N_BUCKETS: one thread per digit in a block
 #define HIST_LANES 4           // lanes per thread in stages 1 and 3
-#define TEAM 6                 // threads per point operation
-#define TEAMS_PER_WARP 5
+#define TEAM G1_TEAM           // threads per point operation
+#define TEAMS_PER_WARP G1_TEAMS_PER_WARP
 #define LEVEL_WARPS 4
 #define LEVEL_THREADS (32 * LEVEL_WARPS)
 #define LEVEL_TEAMS (TEAMS_PER_WARP * LEVEL_WARPS)
@@ -177,15 +177,6 @@ static int msm_plan(int n, MsmPlan& p) {
   p.sum = p.buckets + N_BUCKETS * PT_WORDS;
   p.words = p.sum + PT_WORDS;
   return 1;
-}
-
-// this thread's team within its warp: place k, lanes mask, team index in
-// the block (-1 for the two lanes left over in each warp)
-DEV int team_of(int& k, unsigned& mask) {
-  const int lane = threadIdx.x & 31, tw = lane / TEAM;
-  k = lane - tw * TEAM;
-  mask = ((1u << TEAM) - 1u) << (tw * TEAM);
-  return tw < TEAMS_PER_WARP ? (int)(threadIdx.x >> 5) * TEAMS_PER_WARP + tw : -1;
 }
 
 // the bucket d of output j of a level: off[d] <= j < off[d + 1], for

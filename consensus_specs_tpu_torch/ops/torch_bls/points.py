@@ -29,6 +29,8 @@ from . import limbs as L
 from . import tower as T
 
 SCALAR_WORDS = 4          # 128-bit RLC scalars as 4 little-endian words
+K1_TEAMS = 40             # csrc/points.cu: 8 warps of five teams of six
+K1_WIN = 4                # K1's sliding windows over its scalars (K1_WIN)
 
 # Fq products per G1 point operation (for the kernels' bounds), a = 0:
 # RCB complete addition 12, mixed addition (one affine input) 11,
@@ -209,13 +211,35 @@ def g1_aggregate_scale_plain(pk, counts, scalars=None):
 
 def g1_aggregate_scale_fq_products(pk, counts, scalars=None) -> int:
     """Fq products K1's function needs on these inputs: per row, count - 1
-    mixed additions of its affine keys, then the scalar's ladder (whose
-    base, the sum, is projective: full additions), then an inversion (no
+    mixed additions of its affine keys, then the scale of the sum (whose
+    base is projective: full additions) by the cheaper of binary
+    double-and-add and K1's sliding windows, then an inversion (no
     products, see ``tower.F2_INV``) and two products to make it affine."""
     n = sum(max(int(k) - 1, 0) for k in counts.tolist()) * G1_MADD
     for k in (scalar_ints(scalars) if scalars is not None else ()):
-        n += _ladder_fq_products(k, G1_DBL, G1_ADD)
+        n += _scale_fq_products(k, K1_WIN, G1_DBL, G1_ADD, G1_ADD)
     return n + len(counts) * 2
+
+
+def g1_aggregate_scale_chain(counts, scalars=None) -> int:
+    """K1's chain floor on these inputs, in dependent Fq product waves (two
+    a team step): the longest row's team sum (team t adds keys t + 40 j,
+    ceil(count / 40) - 1 additions after its first key), the tree's six
+    levels over the 40 partials, the scale (the table of odd multiples:
+    2S and seven additions; then the windows' doublings and additions),
+    and one wave to make it affine (the binary-Euclid inversion has no
+    products)."""
+    from . import team_programs as TP
+    tree = (K1_TEAMS - 1).bit_length()
+    ks = scalar_ints(scalars) if scalars is not None else [0] * len(counts)
+    steps = 0
+    for c, k in zip(counts.tolist(), ks):
+        scale = 0
+        if k:
+            _, mid, tail = TP.sliding_windows(k, K1_WIN)
+            scale = (1 << (K1_WIN - 1)) + sum(sq + 1 for sq, _ in mid) + tail
+        steps = max(steps, max(-(-int(c) // K1_TEAMS) - 1, 0) + tree + scale)
+    return steps * TP.STEP_PRODUCT_WAVES + 1
 
 
 def g1_aggregate_scale(pk, counts, scalars=None):
@@ -227,11 +251,14 @@ def g1_aggregate_scale(pk, counts, scalars=None):
     affine [scalar] * sum (B, 2, 12) int32 and its infinity flag (B,)
     bool.
 
-    CUDA: one block per row; threads sum strided key subsets with the
-    complete formulas, a shared-memory tree joins them, then thread 0
-    scales (128 double-and-add steps) and inverts Z.  Bound: integer
-    multiply-adds (``g1_aggregate_scale_fq_products``); the keys are read
-    once (96 bytes each)."""
+    CUDA: one block of 40 teams of six threads a row (``csrc/team.cuh``
+    team_add, team_dbl: two waves of Fq products a step).  Team t sums
+    keys t, t + 40, ..., a tree of team additions joins the partials, team
+    0 scales the sum by 4-bit sliding windows over its odd multiples and
+    makes it affine with one binary-Euclid inversion.  Bound: the chain of
+    dependent products (``g1_aggregate_scale_chain``), not the card's
+    multiply-add rate (``g1_aggregate_scale_fq_products``); the keys are
+    read once (96 bytes each)."""
     dev = _build.same_device(pk, scalars)
     B, N = pk.shape[0], pk.shape[1]
     _build.check(pk, "pk", torch.int32, (B, N, 2, 12))
@@ -264,17 +291,24 @@ def g2_scale_sum_plain(sig, sig_inf, scalars):
     return L.pack(out), inf
 
 
-def _g2_lane_fq_products(k: int) -> int:
-    """[k]P for an affine P by the cheaper of binary double-and-add and
-    K2's sliding windows (2P and the odd multiples' table, then a doubling
-    per bit after the first window and an addition per further window)."""
+def _scale_fq_products(k: int, win: int, dbl: int, add: int, ladder_add: int) -> int:
+    """[k]P by the cheaper of binary double-and-add (``ladder_add`` a set
+    bit) and the kernels' ``win``-bit sliding windows (2P and the odd
+    multiples' table, then a doubling per bit after the first window and
+    an addition per further window)."""
     from . import team_programs as TP
     if k == 0:
         return 0
-    _, mid, tail = TP.sliding_windows(k, TP.K2_WIN)
-    table = G2_DBL + ((1 << (TP.K2_WIN - 1)) - 1) * G2_ADD
-    windows = table + sum(sq * G2_DBL + G2_ADD for sq, _ in mid) + tail * G2_DBL
-    return min(windows, _ladder_fq_products(k, G2_DBL, G2_MADD))
+    _, mid, tail = TP.sliding_windows(k, win)
+    table = dbl + ((1 << (win - 1)) - 1) * add
+    windows = table + sum(sq * dbl + add for sq, _ in mid) + tail * dbl
+    return min(windows, _ladder_fq_products(k, dbl, ladder_add))
+
+
+def _g2_lane_fq_products(k: int) -> int:
+    """[k]P for an affine P (binary: mixed additions) as K2 computes it."""
+    from . import team_programs as TP
+    return _scale_fq_products(k, TP.K2_WIN, G2_DBL, G2_ADD, G2_MADD)
 
 
 def g2_scale_sum_fq_products(sig, sig_inf, scalars) -> int:

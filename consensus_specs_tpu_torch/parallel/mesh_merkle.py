@@ -21,10 +21,13 @@ level is cut back to its occupied prefix (``ceil(count / 2^i)`` nodes),
 so ``IncrementalTree.levels`` equals the sequential build's and every
 later incremental update sees the same tree.
 
-K18 (``csrc/mesh_merkle.cu``): one CTA hashes a subtree of up to
-2^``LEVELS_PER_LAUNCH`` nodes in shared memory and writes each of its
-levels, so a 2^20-leaf tree takes two launches instead of twenty.
-Bound: 32-bit integer operations (``sha256.hash64_int_ops`` per node).
+K18 (``csrc/mesh_merkle.cu``): one launch a tree, in tiers.  A CTA of T
+threads folds up to 2T nodes, each level written once, and the last of
+each group of sibling CTAs to finish goes on up with their nodes, to
+each span's root (:func:`tiers`; the CTA size and the first tier's
+depth by tree size: :func:`launch_plan`).  Bound: 32-bit integer
+operations (``sha256.hash64_int_ops`` per node), and the chain of a
+span's depth in dependent hashes (:func:`merkle_levels_chain`).
 
 The span build runs where the merkle engine's batched hasher runs
 (``merkle.batched_hasher_device``): with no batched hasher installed
@@ -43,7 +46,8 @@ from ..ops import sha256
 from ..utils.ssz import merkle
 from . import mesh_state
 
-LEVELS_PER_LAUNCH = 10          # csrc/mesh_merkle.cu MERKLE_LEVELS_MAX
+LOG_KEEP = 5                    # from BULK_LEAVES on, a first-tier CTA keeps 2^5 nodes
+MAX_THREADS = 512               # csrc/mesh_merkle.cu MERKLE_MAX_THREADS
 
 
 def _local_depth(n: int, spans: int) -> int:
@@ -65,34 +69,108 @@ def merkle_levels_plain(leaves, spans: int = 1):
     return torch.cat(out)
 
 
+def tiers(depth: int, threads: int, first: int) -> list:
+    """K18's schedule for spans of ``depth`` levels and CTAs of ``threads``
+    (a power of two): one ``(input level, levels folded, input nodes of
+    a CTA)`` a tier.  A CTA's whole subtree is 2 x ``threads`` nodes, k =
+    log2(2 x ``threads``) levels.  The first tier folds ``first`` levels
+    (1 to k; :func:`launch_plan` picks it), each later tier whole
+    subtrees of up to k levels, its CTA the last of its siblings to
+    finish, the last one ending at each span's root."""
+    k = (2 * threads).bit_length() - 1
+    if depth <= k:
+        return [(0, depth, 1 << depth)]
+    if not 1 <= first <= k:
+        raise ValueError(f"merkle_levels: a first tier of {first} levels (1 to {k})")
+    out, s = [(0, first, 1 << k)], first
+    while s < depth:
+        fold = min(k, depth - s)
+        out.append((s, fold, 1 << fold))
+        s += fold
+    return out
+
+
+def pack_plan(plan: list) -> int:
+    """``tiers`` as the kernel's 64-bit plan: a byte a tier, the levels
+    folded in its low 4 bits, log2 of a CTA's input nodes in the high 4."""
+    if len(plan) > 8:
+        raise ValueError(f"merkle_levels: {len(plan)} tiers (at most 8)")
+    return sum((fold | (width.bit_length() - 1) << 4) << (8 * r)
+               for r, (_, fold, width) in enumerate(plan))
+
+
+def tier_counters(n: int, plan: list) -> int:
+    """Arrival counters of a launch over ``n`` leaves: one per CTA of every
+    tier after the first."""
+    return sum((n >> s) // width for s, _, width in plan[1:])
+
+
+BULK_LEAVES = 1 << 19            # from here on the bulk of the hashing binds, not the top
+
+
+def launch_plan(n: int, depth: int) -> tuple:
+    """``(threads, tiers)`` of a launch over ``n`` leaves in spans of
+    ``depth`` levels, as measured on the H100 (``chip_smoke.py --probe``):
+    below ``BULK_LEAVES`` the chain of the top levels binds, so a CTA of
+    128 threads (up to 2^14 leaves: a CTA for each SM) or 256 folds its
+    whole subtree and one more tier the rest; from ``BULK_LEAVES`` on the
+    first tier's CTAs of 512 threads keep a warp's width of nodes, so the
+    narrow levels of their subtrees go to the few CTAs of the later
+    tiers."""
+    threads = 128 if n <= 1 << 14 else 256 if n < BULK_LEAVES else MAX_THREADS
+    k = (2 * threads).bit_length() - 1
+    return threads, tiers(depth, threads, k if n < BULK_LEAVES else k - LOG_KEEP)
+
+
 def merkle_levels(leaves, spans: int = 1):
-    """K18.  ``leaves``: uint8 (N, 32) chunks, N a power of two and at
-    least ``2 * spans``, ``spans`` a power of two.  Returns uint8
-    (N - spans, 32): levels 1 to ``log2(N / spans)`` of every span's
-    subtree, level by level (level i holds N >> i nodes, the spans' nodes
-    in span order).  One launch per ``LEVELS_PER_LAUNCH`` levels."""
+    """K18.  ``leaves``: uint8 (N, 32) chunks, N a power of two (at most
+    2^30 on the card) and at least ``2 * spans``, ``spans`` a power of
+    two.  Returns uint8 (N - spans, 32): levels 1 to ``log2(N / spans)``
+    of every span's subtree, level by level (level i holds N >> i nodes,
+    the spans' nodes in span order).  One launch."""
     dev = _build.same_device(leaves)
     n = leaves.shape[0]
     _build.check(leaves, "leaves", torch.uint8, (n, 32))
     depth = _local_depth(n, spans)
     if dev.type == "cpu":
         return merkle_levels_plain(leaves, spans)
+    return _launch(leaves, *launch_plan(n, depth))
+
+
+def _launch(leaves, threads: int, plan: list):
+    """One K18 launch with CTAs of ``threads`` following ``plan``
+    (``tiers``)."""
     if leaves.data_ptr() % 16:
         raise ValueError("leaves: the kernel loads 16-byte words; the data must start on a "
                          "16-byte boundary")
-    out = torch.empty((n - spans, 32), dtype=torch.uint8, device=dev)
-    src, nodes, done, off = leaves, n, 0, 0
-    while done < depth:
-        levels = min(LEVELS_PER_LAUNCH, depth - done)
-        _build.launch("merkle_levels", src, out[off:], nodes, levels)
-        for _ in range(levels - 1):
-            off += nodes >> 1
-            nodes >>= 1
-        src = out[off:off + (nodes >> 1)]
-        off += nodes >> 1
-        nodes >>= 1
-        done += levels
+    n = leaves.shape[0]
+    depth = sum(fold for _, fold, _ in plan)
+    spans = n >> depth
+    out = torch.empty((n - spans, 32), dtype=torch.uint8, device=leaves.device)
+    arrived = _counters(leaves.device, tier_counters(n, plan))
+    _build.launch("merkle_levels", leaves, out, arrived, n, depth, threads, pack_plan(plan))
     return out
+
+
+_arrival = {}
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    """Zeroed arrival counters for a launch: one buffer per device and
+    stream, zeroed once when made or grown and kept, since every launch
+    leaves them zero (each group's last CTA resets its own)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _arrival.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=dev)
+        _arrival[key] = buf
+    return buf
+
+
+def merkle_levels_chain(n: int, spans: int = 1) -> int:
+    """K18's chain floor: a span's depth in dependent hashes (each level's
+    node waits for its two children)."""
+    return _local_depth(n, spans)
 
 
 def merkle_levels_hashes(count: int, spans: int, full_width: int) -> int:
