@@ -21,7 +21,9 @@ stages), K15 at the epoch engine's max-only and rewards calls beside
 (6, 4096), forward and inverse (a tree before K9's one launch a batch:
 its stage launches), K17 at 2^20 lanes over 1, 2 and 4 spans beside
 ``torch.nonzero`` (``--only k9,k17``), K10-K14 and K16 at 2^20 lanes
-(``epoch``), K5 and K6 (``sha``), through the wrappers alone, so
+(``epoch``: K13 leaking and not, K16's fill alone, its scatter and its
+entries in lane order), K5 and K6 (``sha``), through the wrappers
+alone, so
 that it measures any tree of the port: ``--root`` names a checkout of it
 inside this one (an unpacked parent commit; default: this checkout).
 With ``--sweep RUNS`` it then times the columnar engine against the mesh
@@ -139,7 +141,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    lanes, leaking and not, on seeded edge columns (every flag
    combination, eligible and not, active and not, zero balances, clamps
    at the first, a middle and the last of K13's four pairs, scores 0, 1
-   and the recovery rate, lane products just under 2^63);
+   and the recovery rate, lane products just under 2^63), and K13 at n =
+   1, 3, 4, 5, 7, 1000 and 2^20 + 3 with every divisor 1, powers of two
+   and primes, products at the guards' limit, on columns that start on
+   their storage and one lane into it;
 13. (run right after phase 6, so that its 2^20-validator state is not
    held through phases 7-12) a mainnet Altair block through the port's
    ``state_transition`` on the card (``build_spec("altair", "mainnet")``):
@@ -178,7 +183,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    engine's five calls, its dispatch set, and a call outside it refused;
    span starts off a 16-byte boundary; FAR epochs, sums past 2^63, maxima
    at 2^64 - 1, every flag combination, duplicate and pad inclusion
-   entries with keys up to the sentinel), K17 ``registry_scan`` at S = 1,
+   entries with keys up to the sentinel; K16 also at odd lane counts with
+   m = 0, 1, 2, 3, 5 and three entries a lane, pads, negative and
+   out-of-range indices, keys >= 2^63 and the sentinel, and idx and keys
+   one entry into their storage), K17 ``registry_scan`` at S = 1,
    2 and 4 spans of 1, 1000, 2048 (a tile) and 2049 lanes and at 2^20
    lanes (a count above the cap, every lane a candidate, with and without
    fill), and K18
@@ -194,7 +202,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    path's calls (CUDA events, queued ahead) beside their bounds (K18 also
    its chain floor), plain versions and, where one
    PyTorch call computes the same function, that call, and an empty
-   launch; print the ``kernels`` line (K1-K18, every number measured in
+   launch (K16 also its fill alone; K10-K14 also at the not-leaking
+   run's call); print the ``kernels`` line (K1-K18, every number measured in
    this run but the bounds; K8 with its per-stage times at the
    commitment, cell and verify shapes; K7 at every launched shape and K4
    at every path's shape, each with its launches), the card line and the
@@ -2200,17 +2209,24 @@ def epoch_entries(torch, card, phase, names=EPOCH_KERNELS) -> list:
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
         launches = max(r["launches"][name] for r in phase["runs"].values())
         err = max(phase["err"], max(r["err"][name] for r in phase["runs"].values()))
+        # the not-leaking run's call too, beside its own bound
+        quiet = phase["runs"]["not_leaking"]["calls"][name][0][0]
+        q_ms = queued_ms(torch, lambda: fn(*quiet))
+        q_bytes, q_ops = epoch_bound_counts(ek, name, quiet, False)
+        q_bound = max(q_bytes / HBM_BYTES_PER_S, q_ops / INT32_OPS_PER_S) * 1e3
         out.append({"name": name, "route": "cuda",
                     "source": "consensus_specs_tpu_torch/csrc/epoch.cu",
                     "replaces": EPOCH_REPLACES[name], "launches": launches, "max_abs_err": err,
                     "ms": ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
                     "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
                     "lanes": int(args[0].numel()), "bytes": nbytes, "ops": ops,
-                    "back_to_back_ms": back_ms})
+                    "back_to_back_ms": back_ms, "not_leaking_ms": q_ms,
+                    "not_leaking_bound_ms": q_bound})
         print(f"time {name} at {args[0].numel()} lanes: {ms:.4f} ms per launch queued ahead "
               f"({back_ms:.4f} ms per wrapper call back to back, host launch included; plain on the "
               f"card {p_ms:.3f} ms, bound {max(b_ms, o_ms):.5f} ms: bytes {nbytes} -> "
-              f"{b_ms:.5f} ms, operations {ops} -> {o_ms:.5f} ms); launches per epoch "
+              f"{b_ms:.5f} ms, operations {ops} -> {o_ms:.5f} ms); at the not-leaking run's call "
+              f"{q_ms:.4f} ms queued ahead (bound {q_bound:.5f} ms); launches per epoch "
               f"{launches} on {card}")
     return out
 
@@ -2287,6 +2303,69 @@ def altair_kernel_checks(torch, dev, n_lanes: int) -> int:
           f"the middle and the last pair, scores 0, 1 and {rec}, lane products just under "
           f"2^63; leaking and not) byte-identical to their plain versions on the card "
           f"(tolerance 0: integers)")
+    return max(err, k13_edges(torch, dev, n_lanes))
+
+
+# K13's divisor sets (increment, weight denominator, active increments,
+# inactivity denominator): every divisor 1; powers of two; primes (the
+# reward denominator is then a prime times a prime)
+K13_DIVISORS = {"ones": (1, 1, 1, 1), "powers of two": (2**30, 64, 2**20, 2**26),
+                "primes": (1000000007, 61, 1000003, 2**31 - 1)}
+
+
+def k13_edges(torch, dev, n_lanes: int) -> int:
+    """K13 byte-identical to its plain version on the card at n = 1, 3, 4, 5,
+    7, 1000 and ``n_lanes`` + 3 lanes, leaking and not, for each divisor set
+    of :data:`K13_DIVISORS`, with the lane products at the guards' limit
+    (base x weight x participating increments, eff x score and balance
+    plus the rewards just under 2^63), on columns that start on their
+    storage (4-lane groups and a tail) and one lane into it (off 16 bytes:
+    every lane one at a time).  Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    gwei, limit, err, calls = 10**9, 2**63 - 1, 0, 0
+    t0 = time.perf_counter()
+    for n in (1, 3, 4, 5, 7, 1000, n_lanes + 3):
+        for tag, (inc, wd, active_inc, inact) in K13_DIVISORS.items():
+            rng = np.random.default_rng(n * 13 + len(tag))
+            m = n + 1
+            eff = rng.integers(0, 32 * gwei + 1, m, dtype=np.int64)
+            eff[:2] = 32 * gwei
+            brpi = 64 * gwei // int(np.sqrt(max(gwei, int(eff.sum()))))
+            br_max = (32 * gwei // inc) * brpi
+            # the target's at the limit: its product and the three rewards below 2^63
+            cap = limit // (br_max * 14 * 4)              # the source's and head's far below
+            p0, p2 = max(1, min(n // 3, cap)), max(1, min(n // 4, cap))
+            pinc = (p0, (limit - br_max * 14 * (p0 + p2)) // (br_max * 26), p2)
+            reward_bound = sum(br_max * w * p // (active_inc * wd)
+                               for w, p in zip((14, 26, 14), pinc))
+            # every balance plus its rewards below 2^63 (the engine's guard),
+            # lane 1's (every flag, the largest base) at the limit
+            bal = np.minimum(rng.integers(0, 40 * gwei, m, dtype=np.int64), limit - reward_bound)
+            bal[1] = limit - reward_bound
+            scores = rng.integers(0, 100, m, dtype=np.int64)
+            scores[2 % m] = limit // (32 * gwei)           # eff x score just under 2^63
+            eff[2 % m] = 32 * gwei
+            part = rng.integers(0, 8, m).astype(np.uint8)
+            part[1] = 7
+            part[2 % m] = 0
+            elig, active = rng.random(m) < 0.8, rng.random(m) < 0.85
+            elig[:3], active[:3] = True, True
+            cols = [torch.from_numpy(a).to(dev) for a in (eff, bal, scores, part, elig, active)]
+            layouts = {"on its storage": [c[:n] for c in cols],
+                       "one lane in": [c[1:] for c in cols]}
+            for leak in (False, True):
+                s = ek.AltairScalars(inc, brpi, (14, 26, 14), pinc, active_inc, wd, leak, inact)
+                for lay, args in layouts.items():
+                    err = max(err, compare(torch, f"K13 (n={n}, divisors {tag}, leak={leak}, "
+                                                  f"{lay})", ek.altair_deltas(*args, s),
+                                           ek.altair_deltas_plain(*args, s)))
+                    calls += 1
+    torch.cuda.synchronize()
+    print(f"kernel checks: K13 at n = 1, 3, 4, 5, 7, 1000, {n_lanes + 3}, divisors "
+          f"{K13_DIVISORS}, lane products at the guards' limit, columns on their storage and one "
+          f"lane in, leaking and not ({calls} calls) byte-identical to its plain "
+          f"version on the card (tolerance 0: integers; {time.perf_counter() - t0:.1f} s)")
     return err
 
 
@@ -2735,7 +2814,56 @@ def mesh_kernel_checks(torch, dev, n_lanes: int) -> int:
           f"K16 (duplicates, pads, out-of-range entries, keys >= 2^63 and the sentinel) "
           f"at n = 1, 1000, {n_lanes} with S = 1 and 4 byte-identical to their plain "
           f"versions on the card (tolerance 0: integers)")
-    return max(err, k17_edges(torch, dev, n_lanes))
+    return max(err, k16_edges(torch, dev, n_lanes), k17_edges(torch, dev, n_lanes))
+
+
+def k16_edges(torch, dev, n_lanes: int) -> int:
+    """K16 byte-identical to its plain version on the card at odd lane
+    counts (1, 7, 1001 and ``n_lanes`` + 1) and at ``n_lanes`` over 4
+    spans, with m = 0, 1, 2, 3, 5 entries and three entries a lane (m = 3n
+    and 3n + 1, odd); pad (-1), negative and out-of-range indices (n, n +
+    5, 2^62); keys at and above 2^63 and the sentinel itself as a key; on
+    idx and keys that start on their storage, both one entry in (a head
+    entry before the 16-byte pairs) and idx alone one entry in (every
+    entry one at a time).  Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.parallel import mesh_epoch as me
+    err, calls = 0, 0
+    t0 = time.perf_counter()
+    shapes = [(n, 1) for n in (1, 7, 1001, n_lanes + 1)] + [(n_lanes, 4)]
+    for n, spans in shapes:
+        for m in (0, 1, 2, 3, 5, 3 * n, 3 * n + 1):
+            rng = np.random.default_rng(n * 11 + m)
+            if m >= 3 * n:      # every lane three times, in a seeded order
+                idx = rng.permutation(np.tile(np.arange(n, dtype=np.int64), 3))
+                idx = np.concatenate([idx, rng.integers(0, n, m - 3 * n)])
+            else:
+                idx = rng.integers(0, n, m).astype(np.int64)
+            bad = rng.random(m) < 0.05
+            idx[bad] = rng.choice(np.array([-1, -7, n, n + 5, 2**62]), int(bad.sum()))
+            keys = (rng.integers(1, 33, m).astype(np.uint64) << np.uint64(32)) \
+                | rng.integers(0, 2048, m).astype(np.uint64)
+            hi = rng.random(m) < 0.05
+            keys[hi] = rng.integers(2**63, 2**64 - 1, int(hi.sum()), dtype=np.uint64)
+            keys[rng.random(m) < 0.02] = np.uint64(FAR)
+            big_i = torch.from_numpy(np.concatenate([[5], idx])).to(dev)
+            big_k = torch.from_numpy(np.concatenate([np.array([7], dtype=np.uint64), keys])
+                                     .view(np.int64)).to(dev)
+            layouts = {"on their storage": (big_i[1:].clone(), big_k[1:].clone()),
+                       "both one entry in": (big_i[1:], big_k[1:]),
+                       "idx alone one entry in": (big_i[1:], big_k[1:].clone())}
+            for lay, (ti, tk) in layouts.items():
+                err = max(err, compare(torch, f"K16 (n={n}, S={spans}, m={m}, {lay})",
+                                       me.incl_scan(ti, tk, n, spans),
+                                       me.incl_scan_plain(ti, tk, n, spans)))
+                calls += 1
+    torch.cuda.synchronize()
+    print(f"kernel checks: K16 at n = 1, 7, 1001, {n_lanes + 1} (S = 1) and {n_lanes} (S = 4) "
+          f"with m = 0, 1, 2, 3, 5, 3n and 3n + 1 entries (three a lane), pads, negative and "
+          f"out-of-range indices, keys >= 2^63 and the sentinel, idx and keys on their storage, "
+          f"both one entry in and idx alone ({calls} calls) byte-identical to its plain version "
+          f"on the card (tolerance 0: integers; {time.perf_counter() - t0:.1f} s)")
+    return err
 
 
 def k17_edges(torch, dev, n_lanes: int) -> int:
@@ -2987,9 +3115,14 @@ def mesh_entries(torch, card, run: dict, merkle_calls: list, launches: dict, err
           f"{empty_ms:.5f} ms queued ahead on {card}")
     args, kw = run["calls"]["incl_scan"][0][0], run["kwargs"]["incl_scan"][0]
     base = torch.full((args[2],), 2**63 - 1, dtype=torch.int64, device=args[0].device)
+    # the fill alone: the same lanes and no entry
+    fill_ms = queued_ms(torch, lambda: me.incl_scan(args[0][:0], args[1][:0], *args[2:], **kw))
     out.append(mesh_entry(torch, card, "incl_scan", (args, kw), launches["incl_scan"],
                           err["incl_scan"],
-                          lambda: base.scatter_reduce_(0, args[0], args[1], "amin")))
+                          lambda: base.scatter_reduce_(0, args[0], args[1], "amin"),
+                          {"fill_alone_ms": fill_ms, "entries": int(args[0].numel())}))
+    print(f"time incl_scan, its fill alone (no entry, {args[2]} lanes): {fill_ms:.4f} ms per "
+          f"launch queued ahead on {card}")
     args, kw = run["calls"]["registry_scan"][0][0], run["kwargs"]["registry_scan"][0]
     fams = me.registry_families_plain(*args, **{k: v for k, v in kw.items()
                                                if k not in ("cap", "spans", "fill")})[:3]
@@ -3361,8 +3494,10 @@ def probe_k17(torch, dev) -> dict:
 def probe_epoch(torch, dev) -> dict:
     """K10-K14 and K16 on seeded 2^20-lane columns in a leak (the leaking
     runs' call forms: K10-K12 phase0's, K13-K14 Altair's, K16 one
-    inclusion entry a lane), each held against its plain version first;
-    device ms per call queued ahead."""
+    inclusion entry a lane), K13 also not leaking, and K16's fill alone
+    (no entry), its scatter (the call less the fill) and the call on the
+    same entries in lane order, each call held against its plain version
+    first; device ms per call queued ahead."""
     import numpy as np
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     from consensus_specs_tpu_torch.parallel import mesh_epoch as me
@@ -3395,14 +3530,24 @@ def probe_epoch(torch, dev) -> dict:
         "K14 inactivity_updates": (ek.inactivity_updates, ek.inactivity_updates_plain, (
             t["scores"], t["part"], t["elig"], t["active"], 4, 16, True)),
     }
+    k13 = calls["K13 altair_deltas"][2]
+    calls["K13 altair_deltas (not leaking)"] = (ek.altair_deltas, ek.altair_deltas_plain,
+                                                k13[:-1] + (k13[-1]._replace(in_leak=False),))
     idx = torch.from_numpy(rng.permutation(n).astype(np.int64)).to(dev)
     keys = torch.from_numpy((rng.integers(1, 33, n).astype(np.int64) << 32)
                             | rng.integers(0, 2048, n).astype(np.int64)).to(dev)
     calls["K16 incl_scan"] = (me.incl_scan, me.incl_scan_plain, (idx, keys, n))
+    # the same entries in lane order: the atomics' cost at scattered lanes
+    calls["K16 incl_scan (entries in lane order)"] = (
+        me.incl_scan, me.incl_scan_plain, (torch.arange(n, dtype=torch.int64, device=dev), keys, n))
+    calls["K16 incl_scan fill alone (m = 0)"] = (me.incl_scan, me.incl_scan_plain,
+                                                 (idx[:0], keys[:0], n))
     out = {}
     for name, (fn, plain, args) in calls.items():
         compare(torch, f"{name} (probe)", fn(*args), plain(*args))
         out[name] = queued_ms(torch, lambda: fn(*args), 50)
+    out["K16 scatter (the call less its fill alone)"] = \
+        out["K16 incl_scan"] - out["K16 incl_scan fill alone (m = 0)"]
     return out
 
 

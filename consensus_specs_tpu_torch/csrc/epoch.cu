@@ -21,16 +21,29 @@
 // lane product below 2^63 (ops/epoch_kernels.py _guard).  Masks are one
 // byte per lane (torch.bool).
 //
-// Design: one thread per validator lane, grid-stride, no shared memory:
-// each pass reads its columns once and writes one.  Bound: bytes (K10
-// 36, K11 24, K12 25, K13 35, K14 19 B per lane at most: 11.3, 7.5, 7.8,
-// 11.0 and 6.0 us at 2^20 lanes and 3.35 TB/s); the 64-bit divisions are
-// emulated in a few tens of instructions but stay near the memory time.
-// K13 applies its four (reward, penalty) pairs one after another with a
-// clamp at zero between each, as the spec's loop over the deltas does:
-// summing them first would give another balance wherever a clamp bites.
+// Design: no shared memory; each pass reads its columns once and writes
+// one.  Bound: bytes (K10 36, K11 24, K12 25, K13 35, K14 19 B per lane at
+// most: 11.3, 7.5, 7.8, 11.0 and 6.0 us at 2^20 lanes and 3.35 TB/s).
+// K10-K12 and K14: one thread per validator lane, grid-stride; each
+// 64-bit division by a run-time divisor is nvcc's software routine of
+// several tens of instructions.  K13 does up to six such divisions a lane
+// (the increment, a reward per set flag, a penalty per missing source or
+// target flag, the inactivity penalty), which held it at 38-40% of its
+// bound on an H100, far from the memory time.  Its four divisors are
+// fixed for the launch, so it divides by their exact reciprocals
+// (udiv.cuh: a multiply-high and shifts; the host computes them), and it
+// takes four lanes a thread (16-byte loads of the uint64 columns, 4-byte
+// loads of the byte columns, the scores only where a lane needs one) on as
+// many blocks as the card holds at once: 73% of its bound at the Altair
+// epoch's leaking call, 57% at the other, whose three rewards add three
+// reciprocal divisions a lane (PERF.md).  K13 applies its four (reward,
+// penalty) pairs one after another with a clamp at zero between each, as
+// the spec's loop over the deltas does: summing them first would give
+// another balance wherever a clamp bites.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "udiv.cuh"
 
 #define EPOCH_THREADS 256
 
@@ -105,42 +118,100 @@ k_slashings(const uint64_t* __restrict__ eff, const uint64_t* __restrict__ bal,
   }
 }
 
-// K13's scalars, in the order of the host parameter array.  The flag
-// indices are the spec's constants: 0 source, 1 target, 2 head (no head
-// penalty); the inactivity penalty falls on lanes without the target flag.
+// K13's scalars.  The host array (ops/epoch_kernels.py altair_deltas)
+// holds inc, brpi, weight[3], part_inc[3], reward_den, weight_den,
+// in_leak, inact_den, then the reciprocal (m, l) of inc, reward_den,
+// weight_den and inact_den (udiv.cuh); the divisors themselves are read
+// only through their reciprocals.  The flag indices are the spec's
+// constants: 0 source, 1 target, 2 head (no head penalty); the inactivity
+// penalty falls on lanes without the target flag.
+#define ALTAIR_PARAMS 20
+
 struct AltairParams {
-  uint64_t inc, brpi, weight[3], part_inc[3], reward_den, weight_den, in_leak, inact_den;
+  UDiv inc, reward, weight, inact;
+  uint64_t brpi, weight_of[3], wp[3], in_leak;    // wp: weight x part_inc (mod 2^64)
 };
 
-__global__ void __launch_bounds__(EPOCH_THREADS)
-k_altair_deltas(const uint64_t* __restrict__ eff, const uint64_t* __restrict__ bal,
-                const uint64_t* __restrict__ scores, const uint8_t* __restrict__ part,
-                const uint8_t* __restrict__ elig, const uint8_t* __restrict__ active,
-                uint64_t* __restrict__ out, long long n, AltairParams p) {
-  for (long long i = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x; i < n;
-       i += (long long)gridDim.x * EPOCH_THREADS) {
-    uint64_t b = bal[i];
-    if (elig[i]) {
-      const uint64_t e = eff[i];
-      const uint64_t base = e / p.inc * p.brpi;
-      const uint8_t flags = active[i] ? part[i] : 0;
-      for (int f = 0; f < 3; ++f) {
-        uint64_t rew = 0, pen = 0;
-        if ((flags >> f) & 1) {
-          if (!p.in_leak) rew = base * p.weight[f] * p.part_inc[f] / p.reward_den;
-        } else if (f != 2) {
-          pen = base * p.weight[f] / p.weight_den;
-        }
-        const uint64_t up = b + rew;
-        b = pen > up ? 0 : up - pen;
-      }
-      if (!((flags >> 1) & 1)) {
-        const uint64_t pen = e * scores[i] / p.inact_den;
-        b = pen > b ? 0 : b - pen;
-      }
+struct AltairArgs {
+  const uint64_t *eff, *bal, *scores;
+  const uint8_t *part, *elig, *active;
+  uint64_t* out;
+  long long n, v_hi;             // [0, v_hi): 4-lane groups; [v_hi, n) lane by lane
+  AltairParams p;
+};
+
+// the lanes whose score K13 reads: eligible and without the target flag
+__device__ __forceinline__ bool altair_needs_score(unsigned elig, unsigned act, unsigned part) {
+  return elig && !(act && ((part >> 1) & 1u));
+}
+
+// one lane: the three flag pairs and the inactivity penalty, each pair
+// clamped at zero before the next applies.  The reward's product
+// base x weight x part_inc is taken as base x (weight x part_inc): the
+// same value mod 2^64, and the guards keep it below 2^63.
+__device__ __forceinline__ uint64_t altair_lane(const AltairParams& p, uint64_t b, uint64_t e,
+                                                uint64_t score, unsigned elig, unsigned act,
+                                                unsigned part) {
+  if (!elig) return b;
+  const uint64_t base = udiv(e, p.inc) * p.brpi;
+  const unsigned flags = act ? part : 0u;
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    uint64_t rew = 0, pen = 0;
+    if ((flags >> f) & 1u) {
+      if (!p.in_leak) rew = udiv(base * p.wp[f], p.reward);
+    } else if (f != 2) {
+      pen = udiv(base * p.weight_of[f], p.weight);
     }
-    out[i] = b;
+    const uint64_t up = b + rew;
+    b = pen > up ? 0 : up - pen;
   }
+  if (!((flags >> 1) & 1u)) {
+    const uint64_t pen = udiv(e * score, p.inact);
+    b = pen > b ? 0 : b - pen;
+  }
+  return b;
+}
+
+__device__ __forceinline__ void altair_scalar(const AltairArgs& a, long long i) {
+  const unsigned el = a.elig[i], ac = a.active[i], pa = a.part[i];
+  const uint64_t sc = altair_needs_score(el, ac, pa) ? a.scores[i] : 0;
+  a.out[i] = altair_lane(a.p, a.bal[i], el ? a.eff[i] : 0, sc, el, ac, pa);
+}
+
+// lanes i .. i + 3: two 16-byte loads per uint64 column, one 4-byte load
+// per byte column, the scores only in a half with a lane that needs one,
+// two 16-byte stores
+__device__ __forceinline__ void altair_vec4(const AltairArgs& a, long long i) {
+  const ulonglong2 b0 = *(const ulonglong2*)(a.bal + i), b1 = *(const ulonglong2*)(a.bal + i + 2);
+  const ulonglong2 e0 = *(const ulonglong2*)(a.eff + i), e1 = *(const ulonglong2*)(a.eff + i + 2);
+  const unsigned el = *(const unsigned*)(a.elig + i), ac = *(const unsigned*)(a.active + i),
+                 pa = *(const unsigned*)(a.part + i);
+  unsigned need = 0;
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+    need |= (unsigned)altair_needs_score((el >> (8 * l)) & 0xFFu, (ac >> (8 * l)) & 0xFFu,
+                                         (pa >> (8 * l)) & 0xFFu) << l;
+  ulonglong2 s0 = make_ulonglong2(0, 0), s1 = make_ulonglong2(0, 0);
+  if (need & 3u) s0 = *(const ulonglong2*)(a.scores + i);
+  if (need & 12u) s1 = *(const ulonglong2*)(a.scores + i + 2);
+  const uint64_t b[4] = {b0.x, b0.y, b1.x, b1.y}, e[4] = {e0.x, e0.y, e1.x, e1.y},
+                 s[4] = {s0.x, s0.y, s1.x, s1.y};
+  uint64_t o[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l)
+    o[l] = altair_lane(a.p, b[l], e[l], s[l], (el >> (8 * l)) & 0xFFu, (ac >> (8 * l)) & 0xFFu,
+                       (pa >> (8 * l)) & 0xFFu);
+  *(ulonglong2*)(a.out + i) = make_ulonglong2(o[0], o[1]);
+  *(ulonglong2*)(a.out + i + 2) = make_ulonglong2(o[2], o[3]);
+}
+
+// grid-stride over the 4-lane groups, then the tail lanes
+__global__ void __launch_bounds__(EPOCH_THREADS) k_altair_deltas(AltairArgs a) {
+  const long long t = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x;
+  const long long step = (long long)gridDim.x * EPOCH_THREADS;
+  for (long long i = 4 * t; i < a.v_hi; i += 4 * step) altair_vec4(a, i);
+  for (long long i = a.v_hi + t; i < a.n; i += step) altair_scalar(a, i);
 }
 
 __global__ void __launch_bounds__(EPOCH_THREADS)
@@ -197,23 +268,54 @@ extern "C" int slashings(const void* eff, const void* bal, const void* target, v
   return (int)cudaGetLastError();
 }
 
-// params: a HOST array of 12 uint64 (AltairParams' fields in order), read
+// Whether every column can be read 4 lanes at a time from lane 0: the
+// uint64 columns (and the output) on 16 bytes, the byte columns on 4, as
+// whole columns and the wrapper's allocations are; else every lane goes
+// one at a time.
+static bool altair_vec(const AltairArgs& a) {
+  const uintptr_t wide = (uintptr_t)a.eff | (uintptr_t)a.bal | (uintptr_t)a.scores | (uintptr_t)a.out;
+  const uintptr_t bytes = (uintptr_t)a.part | (uintptr_t)a.elig | (uintptr_t)a.active;
+  return (wide & 15) == 0 && (bytes & 3) == 0;
+}
+
+// params: a HOST array of ALTAIR_PARAMS uint64 (see AltairParams), read
 // here before the launch
 extern "C" int altair_deltas(const void* eff, const void* bal, const void* scores,
                              const void* part, const void* elig, const void* active,
                              void* out, long long n, const void* params, void* stream) {
   const uint64_t* h = (const uint64_t*)params;
-  AltairParams p;
-  p.inc = h[0]; p.brpi = h[1];
+  AltairArgs a;
+  a.eff = (const uint64_t*)eff; a.bal = (const uint64_t*)bal; a.scores = (const uint64_t*)scores;
+  a.part = (const uint8_t*)part; a.elig = (const uint8_t*)elig; a.active = (const uint8_t*)active;
+  a.out = (uint64_t*)out; a.n = n;
+  AltairParams& p = a.p;
+  p.brpi = h[1];
   for (int f = 0; f < 3; ++f) {
-    p.weight[f] = h[2 + f];
-    p.part_inc[f] = h[5 + f];
+    p.weight_of[f] = h[2 + f];
+    p.wp[f] = h[2 + f] * h[5 + f];
   }
-  p.reward_den = h[8]; p.weight_den = h[9]; p.in_leak = h[10]; p.inact_den = h[11];
-  k_altair_deltas<<<grid_for(n), EPOCH_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)eff, (const uint64_t*)bal, (const uint64_t*)scores,
-      (const uint8_t*)part, (const uint8_t*)elig, (const uint8_t*)active, (uint64_t*)out, n,
-      p);
+  p.in_leak = h[10];
+  p.inc = udiv_make(h[12], h[13]);
+  p.reward = udiv_make(h[14], h[15]);
+  p.weight = udiv_make(h[16], h[17]);
+  p.inact = udiv_make(h[18], h[19]);
+  a.v_hi = altair_vec(a) ? n & ~3LL : 0;
+  // as many blocks as are resident at once, fewer where a group (or a
+  // lane, without groups) a thread covers the work
+  static int per_sm = 0, sms = 0;
+  if (!per_sm) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_altair_deltas, EPOCH_THREADS, 0);
+    if (per_sm < 1) per_sm = 1;
+  }
+  long long work = a.v_hi / 4;
+  if (n - a.v_hi > work) work = n - a.v_hi;
+  long long blocks = (work + EPOCH_THREADS - 1) / EPOCH_THREADS;
+  if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
+  if (blocks < 1) blocks = 1;
+  k_altair_deltas<<<(int)blocks, EPOCH_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -41,10 +41,12 @@
 // row of the wrapper's scratch, and the last block to take a ticket
 // (__threadfence, an atomic on a module counter it resets) folds every
 // row in one pass (unsigned 64-bit sums: exact in any order; the host
-// guards n x max < 2^63 before it reads a sum).  K16 is grid-stride, one
-// atomic per entry.  K17 is one launch over tiles of 2048 lanes, its
-// compaction in lane order from warp ballots and a decoupled look-back
-// across tiles (see its section).
+// guards n x max < 2^63 before it reads a sum).  K16 is one cooperative
+// launch that writes its sentinel fill, syncs the grid and makes one
+// atomic per entry (see its section).  K17 is one launch over tiles of
+// 2048 lanes, its compaction in lane order from warp ballots and a
+// decoupled look-back across tiles (see its section).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -390,31 +392,102 @@ extern "C" int epoch_reduce(const void* eff, const void* act, const void* ext, c
 // K16 incl_scan
 // ---------------------------------------------------------------------------
 
-// Every index in [0, spans x n_local) lies on exactly one span, so the
-// JAX program's per-span drop of off-span entries is this range test.
-__global__ void __launch_bounds__(MESH_THREADS)
-k_incl_scan(const long long* __restrict__ idx, const u64* __restrict__ keys, long long m,
-            u64* __restrict__ out, long long n_total) {
-  for (long long e = (long long)blockIdx.x * MESH_THREADS + threadIdx.x; e < m;
-       e += (long long)gridDim.x * MESH_THREADS) {
-    const long long i = idx[e];
-    if (i >= 0 && i < n_total) atomicMin(&out[i], keys[e]);
+// One cooperative launch and no memset, on one CTA of 1024 threads an SM
+// (a grid barrier costs an arrival per CTA).  Each thread first loads its
+// first pair of entries (one 16-byte load of idx and one of keys), then
+// writes the sentinel over its share of the lanes with 16-byte stores, so
+// that the entries' reads overlap the fill; a grid-wide barrier
+// (cooperative_groups this_grid().sync(), so the launch is cooperative and
+// its grid at most what the card holds at once) orders every fill before
+// any atomic; then it makes one atomicMin per entry in range: the loaded
+// pair, the pairs past it, then a head and a tail entry one at a time
+// where idx and keys start off 16 bytes or m is odd.  A minimum does not
+// depend on the order of the atomics, so the result is exact.  The
+// atomics bind: one per entry at scattered lanes, each a read-modify-write
+// in L2 (PERF.md).  Every index in [0, spans x n_local) lies on exactly
+// one span, so the JAX program's per-span drop of off-span entries is the
+// range test (unsigned: pad entries are -1).
+#define INCL_THREADS 1024
+
+struct InclArgs {
+  const long long* idx;
+  const u64* keys;
+  u64* out;
+  long long m, n_total;
+  long long e_lo;      // entries before the first 16-byte pair (m: no pairs)
+};
+
+__device__ __forceinline__ void incl_entry(const InclArgs& a, long long i, u64 key) {
+  if ((u64)i < (u64)a.n_total) atomicMin(a.out + i, key);
+}
+
+__global__ void __launch_bounds__(INCL_THREADS, 1) k_incl_scan(InclArgs a) {
+  const long long t = (long long)blockIdx.x * INCL_THREADS + threadIdx.x;
+  const long long step = (long long)gridDim.x * INCL_THREADS;
+  const u64 S = ~0ull;
+  // the first pair of entries, loaded ahead of the fill
+  const long long e_pairs = (a.m - a.e_lo) >> 1;
+  longlong2 i0 = make_longlong2(0, 0);
+  ulonglong2 k0 = make_ulonglong2(0, 0);
+  if (t < e_pairs) {
+    i0 = *(const longlong2*)(a.idx + a.e_lo + 2 * t);
+    k0 = *(const ulonglong2*)(a.keys + a.e_lo + 2 * t);
+  }
+  // the fill: lane pairs, then the last lane where n_total is odd
+  for (long long p = t; p < a.n_total >> 1; p += step)
+    *(ulonglong2*)(a.out + 2 * p) = make_ulonglong2(S, S);
+  if (t == 0 && (a.n_total & 1)) a.out[a.n_total - 1] = S;
+  cooperative_groups::this_grid().sync();
+  // the entries: the loaded pair, the pairs past it, then the head and
+  // tail entries
+  if (t < e_pairs) {
+    incl_entry(a, i0.x, k0.x);
+    incl_entry(a, i0.y, k0.y);
+  }
+  for (long long p = t + step; p < e_pairs; p += step) {
+    const long long e = a.e_lo + 2 * p;
+    const longlong2 i2 = *(const longlong2*)(a.idx + e);
+    const ulonglong2 k2 = *(const ulonglong2*)(a.keys + e);
+    incl_entry(a, i2.x, k2.x);
+    incl_entry(a, i2.y, k2.y);
+  }
+  const long long e_hi = a.e_lo + 2 * e_pairs, n_scalar = a.e_lo + (a.m - e_hi);
+  for (long long q = t; q < n_scalar; q += step) {
+    const long long e = q < a.e_lo ? q : e_hi + (q - a.e_lo);
+    incl_entry(a, a.idx[e], a.keys[e]);
   }
 }
 
 extern "C" int incl_scan(const void* idx, const void* keys, long long m, void* out,
                          long long n_local, int spans, void* stream) {
-  if (spans < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long n_total = n_local * spans;
-  if (n_total) cudaMemsetAsync(out, 0xFF, sizeof(u64) * n_total, st);   // the sentinel
-  if (m > 0 && n_total > 0) {
-    long long b = (m + MESH_THREADS - 1) / MESH_THREADS;
-    if (b > 4096) b = 4096;
-    k_incl_scan<<<(int)b, MESH_THREADS, 0, st>>>((const long long*)idx, (const u64*)keys, m,
-                                                 (u64*)out, n_total);
+  // out: the wrapper's allocation, on 16 bytes
+  if (spans < 1 || m < 0 || n_local < 0 || ((uintptr_t)out & 15)) return cudaErrorInvalidValue;
+  InclArgs a;
+  a.idx = (const long long*)idx; a.keys = (const u64*)keys; a.out = (u64*)out;
+  a.m = m; a.n_total = n_local * spans;
+  const uintptr_t pi = (uintptr_t)idx, pk = (uintptr_t)keys;
+  // a common head where idx and keys start on the same 16-byte phase
+  a.e_lo = m;
+  if (m > 0 && (pi & 7) == 0 && (pk & 7) == 0 && (pi & 15) == (pk & 15))
+    a.e_lo = (pi & 15) ? 1 : 0;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  return (int)cudaGetLastError();
+  // one CTA an SM at most (the card holds one of 1024 threads on each, and
+  // a cooperative launch refuses more than it holds), fewer where a pair
+  // a thread covers the longer phase
+  long long work = (a.n_total + 1) / 2;
+  const long long entry_work = a.e_lo + (m - a.e_lo + 1) / 2;
+  if (entry_work > work) work = entry_work;
+  long long blocks = (work + INCL_THREADS - 1) / INCL_THREADS;
+  if (blocks > sms) blocks = sms;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {&a};
+  return (int)cudaLaunchCooperativeKernel((const void*)k_incl_scan, dim3((unsigned)blocks),
+                                          dim3(INCL_THREADS), args, 0, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

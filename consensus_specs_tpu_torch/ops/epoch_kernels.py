@@ -32,8 +32,11 @@ composes them per shard:
   K14 ``inactivity_updates`` ``inactivity_updates_kernel`` (:192), as in
                              ``_p_inactivity`` (:418-441)
 
-The CUDA side is ``csrc/epoch.cu``: one thread per validator lane, each
-column read once and the result written once; bound: bytes.  Columns
+The CUDA side is ``csrc/epoch.cu``: each column read once and the
+result written once; bound: bytes.  K10-K12 and K14 take one thread per
+validator lane; K13 four lanes a thread, and it divides by the exact
+reciprocals of its four divisors (:func:`reciprocal`, packed by
+:func:`altair_params`), which are fixed for the launch.  Columns
 are int64 tensors holding uint64 bits.  In torch, uint64 tensors have
 no arithmetic, so the plain versions compute on int64 lanes; that is
 exact because every lane product is guarded below 2^63 (``_guard``: the
@@ -404,7 +407,9 @@ def altair_deltas(eff, balances, scores, part_prev, eligible, active, s: AltairS
     ``balances``, ``scores``: (V,) int64 holding uint64 bits;
     ``part_prev``: (V,) uint8 previous-epoch flags; ``eligible``,
     ``active`` (active in the previous epoch and unslashed): (V,) bool;
-    ``s``: the scalars.  Bound: bytes (:func:`altair_deltas_bytes`)."""
+    ``s``: the scalars.  CUDA: one launch, four lanes a thread, each
+    division by a reciprocal from :func:`altair_params`.  Bound: bytes
+    (:func:`altair_deltas_bytes`)."""
     dev = _build.same_device(eff, balances, scores, part_prev, eligible, active)
     n = balances.shape[0]
     _columns(n, (eff, "eff", torch.int64), (balances, "balances", torch.int64),
@@ -413,14 +418,39 @@ def altair_deltas(eff, balances, scores, part_prev, eligible, active, s: AltairS
     if dev.type == "cpu":
         return altair_deltas_plain(eff, balances, scores, part_prev, eligible, active, s)
     out = torch.empty_like(balances)
-    params = torch.tensor([s.increment, s.base_reward_per_increment, *s.weights,
-                           *s.participating_increments,
-                           s.active_increments * s.weight_denominator, s.weight_denominator,
-                           int(s.in_leak), s.inactivity_denominator], dtype=torch.int64)
     if n:
         _build.launch("altair_deltas", eff, balances, scores, part_prev, eligible, active,
-                      out, n, params)
+                      out, n, altair_params(s))
     return out
+
+
+def reciprocal(d: int) -> Tuple[int, int]:
+    """(m, l) for an exact division by ``d`` (1 <= d < 2^64) as the kernels
+    make it (``csrc/udiv.cuh``; Granlund and Montgomery, PLDI 1994): for
+    d = 2^k, (0, k), a shift; else l = ceil(log2 d) and
+    m = floor(2^64 (2^l - d) / d) + 1, so that for every 64-bit n, with
+    t = (m n) >> 64, n // d = (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0)."""
+    if not 1 <= d < 1 << 64:
+        raise ValueError(f"reciprocal: divisor {d} outside [1, 2^64)")
+    if d & (d - 1) == 0:
+        return 0, d.bit_length() - 1
+    ell = d.bit_length()
+    return ((1 << 64) * ((1 << ell) - d)) // d + 1, ell
+
+
+def altair_params(s: AltairScalars) -> torch.Tensor:
+    """K13's host parameter array (``AltairParams`` in csrc/epoch.cu), int64
+    holding uint64 bits: the increment, the base reward per increment, the
+    three weights and participating increments, the reward denominator
+    (active increments x weight denominator), the weight denominator, the
+    leak flag, the inactivity denominator, then :func:`reciprocal` of the
+    increment, the reward, weight and inactivity denominators."""
+    reward_den = s.active_increments * s.weight_denominator
+    words = [s.increment, s.base_reward_per_increment, *s.weights, *s.participating_increments,
+             reward_den, s.weight_denominator, int(s.in_leak), s.inactivity_denominator]
+    for d in (s.increment, reward_den, s.weight_denominator, s.inactivity_denominator):
+        words += reciprocal(d)
+    return torch.tensor([mesh_epoch.bits64(w) for w in words], dtype=torch.int64)
 
 
 def inactivity_updates(scores, part_prev, eligible, active, bias, recovery_rate, in_leak):

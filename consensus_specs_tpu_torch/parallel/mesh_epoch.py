@@ -291,7 +291,9 @@ def incl_scan(idx, keys, n: int, spans: int = 1):
     a multiple of ``spans``.  Returns (n,) int64: each lane's least key,
     ``2^64 - 1`` (-1) where no entry lands.  The spec's ordered strict-<
     update keeps the first attestation at the least delay; the least key
-    is that one.  Bound: bytes (:func:`incl_scan_bytes`)."""
+    is that one.  CUDA: one cooperative launch, the sentinel fill, a
+    grid-wide barrier, then one atomic minimum per entry; a launch the card
+    refuses raises.  Bound: bytes (:func:`incl_scan_bytes`)."""
     dev = _build.same_device(idx, keys)
     m = idx.shape[0]
     _build.check(idx, "idx", torch.int64, (m,))
@@ -301,7 +303,8 @@ def incl_scan(idx, keys, n: int, spans: int = 1):
     if dev.type == "cpu":
         return incl_scan_plain(idx, keys, n, spans)
     out = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.launch("incl_scan", idx, keys, m, out, n // spans, spans)
+    if n:
+        _build.launch("incl_scan", idx, keys, m, out, n // spans, spans)
     return out
 
 
