@@ -22,9 +22,10 @@ stages), K15 at the epoch engine's max-only and rewards calls beside
 its stage launches), K17 at 2^20 lanes over 1, 2 and 4 spans beside
 ``torch.nonzero`` (``--only k9,k17``), K10-K14 and K16 at 2^20 lanes
 (``epoch``: K13 leaking and not, K16's fill alone, its scatter and its
-entries in lane order), K5 and K6 (``sha``), through the wrappers
-alone, so
-that it measures any tree of the port: ``--root`` names a checkout of it
+entries in lane order), K5 and K6 (``sha``: K6 at 256, 4,224 and 67,584
+messages of 1, 5 and 17 blocks, and the round-latency probe's ns per
+round with K5's and K6's chain floors in ms), through the wrappers
+alone, so that it measures any tree of the port: ``--root`` names a checkout of it
 inside this one (an unpacked parent commit; default: this checkout).
 With ``--sweep RUNS`` it then times the columnar engine against the mesh
 engine at 2^12, 2^14 and 2^16 validators on both forks, the least of
@@ -59,7 +60,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    time the block flush and the 128-lane batch;
 5. hold K5 ``hash64`` and K6 ``sha256_blocks`` byte-identical to their
    plain versions on the card and to hashlib, on seeded rows (n = 1, 3,
-   255, 256, 257, 4096) and on 1-, 2- and 5-block messages;
+   255, 256, 257, 4096) and K6 at m = 1, 31, 33, 256 and 257 messages of
+   1, 2, 5 and 17 blocks, on words that start on 16 bytes and one word
+   off; measure the round-latency probe's ns per round
+   (``sha256.sha256_chain``, held against its plain version), which turns
+   K5's and K6's chain floors into ms;
 6. a mainnet phase0 block through the port's ``state_transition`` on the
    card (``build_spec("phase0", "mainnet")``, ``bls.use_torch()``,
    ``sha256.install_merkle_hasher()``): a ``BeaconState`` of 2^20 active
@@ -113,7 +118,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    ``process_slots`` with the epoch engine on the card
    (``epoch_kernels.use_vectorized()``): K10 ``phase0_deltas``, K11
    ``effective_balance`` and K12 ``slashings`` held byte-identical to
-   their plain versions on seeded edge columns; a ``BeaconState`` of 2^20
+   their plain versions on seeded edge columns (K12 also at n = 1, 3, 4,
+   5, 7, 1000 and 2^20 + 3 with increments 1, a power of two and a prime,
+   the total at the increment, adjusted 0 and at the total, no targets,
+   all and every fourth, products at the guard's limit, on columns that
+   start on their storage and one lane into it); a ``BeaconState`` of 2^20
    validators (``--validators``) at slot 223 with the registry edges of
    ``tests/test_epoch_vectorized.py`` scattered and the 2048 committees
    of epoch 5 in ``previous_epoch_attestations`` (all bits set; no
@@ -409,9 +418,46 @@ def seeded_rows(n: int) -> bytes:
     return bytes(out)
 
 
+# K6's edge shapes: messages (a lone thread, a partial warp on either side
+# of one, the probe's 256 and one past it, in a partial CTA) and blocks
+# (one: nothing loaded ahead; two, the probe's five, and 17)
+K6_MESSAGES = (1, 31, 33, 256, 257)
+K6_BLOCKS = (1, 2, 5, 17)
+# the round-latency probe's two lengths (x 64 rounds): their difference
+# cancels the launch
+CHAIN_REPS = (64, 1088)
+
+
+def k6_words(torch, sha256, m: int, nb: int, tag: bytes = b"") -> tuple:
+    """m seeded messages whose padding gives nb blocks: (int32 (m, nb, 16)
+    words on the host, the messages)."""
+    msgs = [hashlib.shake_256(SEED + tag + bytes([nb]) + i.to_bytes(4, "little"))
+            .digest(64 * (nb - 1) + i % 56) for i in range(m)]
+    words = torch.stack([torch.from_numpy(sha256.pad_message(x).copy()) for x in msgs])
+    check(tuple(words.shape) == (m, nb, 16), f"padding gave {tuple(words.shape)}")
+    return words, msgs
+
+
+def round_ns(torch, sha256, dev) -> float:
+    """ns per round of one thread's dependent chain of SHA-256 rounds: the
+    round-latency probe (``sha256.sha256_chain``) held against its plain
+    version, then timed queued ahead at :data:`CHAIN_REPS` x 64 rounds;
+    the difference of the two times over the difference of the rounds."""
+    lo, hi = CHAIN_REPS
+    for reps in (1, lo):
+        got = sha256.sha256_chain(reps, dev).cpu()
+        check(torch.equal(got, sha256.sha256_chain(reps, "cpu")),
+              f"the round-latency probe differs from its plain version at {reps} x 64 rounds")
+    t = {r: queued_ms(torch, lambda: sha256.sha256_chain(r, dev), 5) for r in CHAIN_REPS}
+    return (t[hi] - t[lo]) * 1e6 / (64 * (hi - lo))
+
+
 def sha_kernel_checks(torch, cu, sha256) -> dict:
     """Phase 5: K5 and K6 against their plain versions on the card and
-    hashlib; returns the largest K6 call's arguments for timing."""
+    hashlib (K6 at every shape of :data:`K6_MESSAGES` x :data:`K6_BLOCKS`,
+    on words that start on 16 bytes and one word off), the round-latency
+    probe measured; returns the probe's ns per round and the 256
+    five-block call's arguments for timing."""
     for n in (1, 3, 255, 256, 257, 4096):
         raw = seeded_rows(n)
         rows = torch.frombuffer(bytearray(raw), dtype=torch.uint8).reshape(n, 64).to(cu)
@@ -419,24 +465,48 @@ def sha_kernel_checks(torch, cu, sha256) -> dict:
         compare(torch, f"K5 (n={n})", got, sha256.hash64_plain(rows))
         want = b"".join(hashlib.sha256(raw[64 * i:64 * (i + 1)]).digest() for i in range(n))
         check(got.cpu().numpy().tobytes() == want, f"K5 differs from hashlib at n={n}")
-    k6 = None
-    for nb in (1, 2, 5):
-        msgs = [hashlib.shake_256(SEED + bytes([nb, i])).digest(64 * (nb - 1) + i % 56)
-                for i in range(256)]
-        words = torch.stack([torch.from_numpy(sha256.pad_message(m).copy()) for m in msgs])
-        check(tuple(words.shape) == (256, nb, 16), f"padding gave {tuple(words.shape)}")
-        w = words.to(cu)
-        got = sha256.sha256_blocks(w, nb)
-        compare(torch, f"K6 ({nb} blocks)", got, sha256.sha256_blocks_plain(w))
-        digests = got.cpu().numpy().astype(">u4").tobytes()
-        check(digests == b"".join(hashlib.sha256(m).digest() for m in msgs),
-              f"K6 differs from hashlib at {nb} blocks")
-        k6 = (w, nb)
+    k6, calls = None, 0
+    for nb in K6_BLOCKS:
+        for m in K6_MESSAGES:
+            words, msgs = k6_words(torch, sha256, m, nb)
+            digests = b"".join(hashlib.sha256(x).digest() for x in msgs)
+            w = words.to(cu)
+            # the same words one word into a larger storage: off 16 bytes
+            off = torch.zeros(words.numel() + 1, dtype=torch.int32, device=cu)[1:]
+            off.copy_(w.reshape(-1))
+            off = off.view(m, nb, 16)
+            check(off.data_ptr() % 16 == 4, "the off-16 view starts on 16 bytes")
+            want = sha256.sha256_blocks_plain(w)
+            for lay, x in (("on 16 bytes", w), ("off 16 bytes", off)):
+                got = sha256.sha256_blocks(x, nb)
+                compare(torch, f"K6 ({m} messages, {nb} blocks, {lay})", got, want)
+                check(got.cpu().numpy().astype(">u4").tobytes() == digests,
+                      f"K6 differs from hashlib at {m} messages of {nb} blocks ({lay})")
+                calls += 1
+            if (m, nb) == (256, 5):
+                k6 = (w, nb)
     check(sha256.sha256_bytes(b"abc", cu) == hashlib.sha256(b"abc").digest(), "sha256_bytes")
-    print("kernel checks (small inputs): K5 at n = 1, 3, 255, 256, 257, 4096 and K6 on "
-          "1-, 2- and 5-block messages byte-identical to their plain versions on the "
-          "card and to hashlib (tolerance 0: bytes)")
-    return {"sha256_blocks": k6}
+    ns = round_ns(torch, sha256, cu)
+    check(ns > 0, f"the round-latency probe gave {ns} ns per round")
+    print(f"kernel checks (small inputs): K5 at n = 1, 3, 255, 256, 257, 4096 and K6 at "
+          f"m = {K6_MESSAGES} x nb = {K6_BLOCKS}, on and off 16 bytes ({calls} calls) "
+          f"byte-identical to their plain versions on the card and to hashlib (tolerance 0: "
+          f"bytes); the round-latency probe equal to its plain version, {ns:.4f} ns per "
+          f"dependent round")
+    return {"sha256_blocks": k6, "round_ns": ns}
+
+
+def with_chain_floor(entry: dict, chain_ops: int, ns_per_round: float) -> dict:
+    """Add a kernel entry's chain floor in ms (``chain_ops`` dependent
+    instructions, 4 a round, at the measured ns per round) and make its
+    bound the larger of the bound it had and the chain floor;
+    ``bound_term`` names which of ops, bytes and chain bounds."""
+    chain_ms = chain_ops / 4 * ns_per_round * 1e-6
+    entry.update(chain_ops=chain_ops, chain_ms=chain_ms, round_ns=ns_per_round)
+    entry.setdefault("bound_term", "ops" if entry["bound_by"] == "operations" else "bytes")
+    if chain_ms > entry["bound_ms"]:
+        entry.update(bound_ms=chain_ms, bound_by="operations", bound_term="chain")
+    return entry
 
 
 class HasherClock:
@@ -876,10 +946,11 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
         bls_err
 
 
-def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
-    """The K6 entry of the ``kernels`` line, timed at its largest checked
+def sha256_blocks_entry(torch, card, sha256, args, launches: int, ns_per_round: float) -> dict:
+    """The K6 entry of the ``kernels`` line, timed at its 256 five-block
     call; ``launches`` is its count in the transition (K6 is a test aid,
-    not on the transition's path: 0)."""
+    not on the transition's path: 0).  Its bound is the larger of
+    operations, bytes and the chain floor at the measured ns per round."""
     w, nb = args
     m = w.shape[0]
     k_ms = queued_ms(torch, lambda: sha256.sha256_blocks(w, nb), 20)
@@ -891,13 +962,21 @@ def sha256_blocks_entry(torch, sha256, args, launches: int) -> dict:
     err = compare(torch, "K6", sha256.sha256_blocks(w, nb), want)
     ops_ms = sha256.sha256_blocks_int_ops(m, nb) / INT32_OPS_PER_S * 1e3
     bytes_ms = (64 * nb + 32) * m / HBM_BYTES_PER_S * 1e3
-    return {"name": "sha256_blocks", "route": "cuda",
-            "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
-            "replaces": "consensus_specs_tpu/ops/sha256.py:141",
-            "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "messages": m, "blocks": nb}
+    entry = with_chain_floor({
+        "name": "sha256_blocks", "route": "cuda",
+        "source": "consensus_specs_tpu_torch/csrc/sha256.cu",
+        "replaces": "consensus_specs_tpu/ops/sha256.py:141",
+        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None, "messages": m, "blocks": nb},
+        sha256.sha256_blocks_chain_ops(nb), ns_per_round)
+    print(f"time sha256_blocks at {m} messages of {nb} blocks: {k_ms:.5f} ms queued ahead; "
+          f"bound {entry['bound_ms']:.6f} ms by {entry['bound_term']} (operations {ops_ms:.7f}, bytes {bytes_ms:.7f}, chain floor "
+          f"{entry['chain_ops']} dependent instructions at {ns_per_round:.4f} ns a round -> "
+          f"{entry['chain_ms']:.6f} ms: {entry['chain_ms'] / k_ms:.1%} of it reached); plain "
+          f"{p_ms:.1f} ms on the card, on {card}")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -1864,6 +1943,62 @@ def epoch_kernel_checks(torch, dev, n_lanes: int) -> int:
           f"penalties above balance plus reward, hysteresis thresholds, lane sums just under "
           f"2^63; leaking and not) byte-identical to their plain versions on the card "
           f"(tolerance 0: integers)")
+    return max(err, k12_edges(torch, dev, n_lanes))
+
+
+# K12's (increment, total balance) sets: an increment of 1 with the total
+# at it; powers of two; a prime increment; mainnet's increment with the
+# total at it (the engines' clamp) and at 2^20 validators of 32 ETH
+K12_DIVISORS = {"ones": (1, 1), "powers of two": (2**30, 2**45),
+                "a prime": (1000000007, 1000000007 * 1000003 + 11),
+                "total at the increment": (10**9, 10**9),
+                "mainnet": (10**9, 2**20 * 32 * 10**9)}
+K12_TARGETS = ("none", "all", "every fourth")
+
+
+def k12_edges(torch, dev, n_lanes: int) -> int:
+    """K12 byte-identical to its plain version on the card at n = 1, 3, 4, 5,
+    7, 1000 and ``n_lanes`` + 3 lanes, for each divisor set of
+    :data:`K12_DIVISORS`, each target mask of :data:`K12_TARGETS` and the
+    adjusted balance at 0, a third of the total and the total, with lane
+    0's (eff // increment) x adjusted at the guard's limit and balances that
+    clamp, on columns that start on their storage (4-lane groups and a
+    tail) and one lane into it (off 16 bytes: every lane one at a time).
+    Returns the largest word difference (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    limit, err, calls = 2**63 - 1, 0, 0
+    t0 = time.perf_counter()
+    for n in (1, 3, 4, 5, 7, 1000, n_lanes + 3):
+        m = n + 1
+        for tag, (inc, total) in K12_DIVISORS.items():
+            rng = np.random.default_rng(n * 12 + len(tag))
+            eff0 = rng.integers(0, 33, m, dtype=np.int64) * 10**9
+            bal = rng.integers(0, 40 * 10**9, m, dtype=np.int64)
+            bal[1:4] = [0, 1, 10**9][:min(3, m - 1)]
+            for adjusted in (0, total // 3, total):
+                # lane 0 (and lane 1, the first of the one-lane-in layout) at the guard's limit
+                top = min(limit // max(1, adjusted), 2048 * 10**9 // inc) * inc
+                eff = np.minimum(eff0, top)
+                eff[:2] = top
+                masks = {"none": np.zeros(m, bool), "all": np.ones(m, bool),
+                         "every fourth": np.arange(m) % 4 == 0}
+                for pattern in K12_TARGETS:
+                    cols = [torch.from_numpy(a).to(dev) for a in (eff, bal, masks[pattern])]
+                    for lay, args in (("on its storage", [c[:n] for c in cols]),
+                                      ("one lane in", [c[1:] for c in cols])):
+                        args += [inc, adjusted, total]
+                        err = max(err, compare(
+                            torch, f"K12 (n={n}, divisors {tag}, adjusted {adjusted}, targets "
+                                   f"{pattern}, {lay})", ek.slashings(*args),
+                            ek.slashings_plain(*args)))
+                        calls += 1
+    torch.cuda.synchronize()
+    print(f"kernel checks: K12 at n = 1, 3, 4, 5, 7, 1000, {n_lanes + 3}, divisors "
+          f"{K12_DIVISORS}, adjusted 0, a third of the total and the total, targets "
+          f"{K12_TARGETS}, (eff // increment) x adjusted at the guard's limit, columns on their "
+          f"storage and one lane in ({calls} calls) byte-identical to its plain version on the "
+          f"card (tolerance 0: integers; {time.perf_counter() - t0:.1f} s)")
     return err
 
 
@@ -3551,11 +3686,18 @@ def probe_epoch(torch, dev) -> dict:
     return out
 
 
+# K6's probe shapes (messages, blocks): the smoke's 256 five-block call,
+# one and 17 blocks, and messages that fill the card (4,224: a warp on
+# each of 132 SMs; 67,584: 16 warps an SM)
+K6_PROBE_SHAPES = tuple((m, nb) for m in (256, 4224, 67584) for nb in (1, 5, 17))
+
+
 def probe_sha(torch, dev) -> dict:
     """K5 at 1, 512 (a transition's launch) and 4,194,304 rows (phase 6's
-    cold root's largest launch) and K6 at 256 five-block messages, each
-    held against its plain version first; device ms per call queued
-    ahead."""
+    cold root's largest launch) and K6 at :data:`K6_PROBE_SHAPES`, each
+    held against its plain version first, device ms per call queued ahead;
+    and, where the checkout has it, the round-latency probe's ns per round
+    with K5's and K6's chain floors in ms."""
     from consensus_specs_tpu_torch.ops import sha256
     out = {}
     for n in (1, 512, 1 << 22):
@@ -3564,11 +3706,16 @@ def probe_sha(torch, dev) -> dict:
         if n <= 4096:
             compare(torch, f"K5 (probe, {n} rows)", sha256.hash64(rows), sha256.hash64_plain(rows))
         out[f"K5 {n} rows"] = queued_ms(torch, lambda: sha256.hash64(rows), 20)
-    msgs = [hashlib.shake_256(SEED + b"probe-k6" + bytes([i])).digest(256 + i % 56)
-            for i in range(256)]
-    w = torch.stack([torch.from_numpy(sha256.pad_message(m).copy()) for m in msgs]).to(dev)
-    compare(torch, "K6 (probe)", sha256.sha256_blocks(w, 5), sha256.sha256_blocks_plain(w))
-    out["K6 256 x 5 blocks"] = queued_ms(torch, lambda: sha256.sha256_blocks(w, 5), 20)
+    for m, nb in K6_PROBE_SHAPES:
+        w = k6_words(torch, sha256, m, nb, b"probe-k6")[0].to(dev)
+        compare(torch, f"K6 (probe, {m} x {nb})", sha256.sha256_blocks(w, nb),
+                sha256.sha256_blocks_plain(w))
+        out[f"K6 {m} x {nb} blocks"] = queued_ms(torch, lambda: sha256.sha256_blocks(w, nb), 20)
+    if hasattr(sha256, "sha256_chain"):
+        ns = round_ns(torch, sha256, dev)
+        out["round-latency probe, ns per round"] = ns
+        out["K5 chain floor ms"] = sha256.hash64_chain_ops() / 4 * ns * 1e-6
+        out["K6 chain floor ms at 5 blocks"] = sha256.sha256_blocks_chain_ops(5) / 4 * ns * 1e-6
     return out
 
 
@@ -3687,7 +3834,8 @@ def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
     for name, ms in result.get("k17", {}).items():
         print(f"K17 {name}: {ms:.5f} ms per call queued ahead on {card}")
     for name, ms in {**result.get("epoch", {}), **result.get("sha", {})}.items():
-        print(f"{name}: {ms:.5f} ms per call queued ahead on {card}")
+        unit = "" if "ns per" in name or "floor" in name else " ms per call queued ahead"
+        print(f"{name}: {ms:.6f}{unit} on {card}")
     if runs:
         result["sweep"] = probe_sweep(torch, dev, runs)
     print(card)
@@ -4040,7 +4188,7 @@ def main(argv=None) -> int:
 
     # ---- 5. the SHA-256 kernels against their plain versions and hashlib ---
     from consensus_specs_tpu_torch.ops import sha256
-    k6_args = sha_kernel_checks(torch, cu, sha256)["sha256_blocks"]
+    sha_checked = sha_kernel_checks(torch, cu, sha256)
 
     lap("phase 5")
 
@@ -4058,8 +4206,12 @@ def main(argv=None) -> int:
         if e["name"] in bls_err:
             e["phase0_block_launches"] = block_launches[e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], bls_err[e["name"]])
-    kernels.append(k5)
-    kernels.append(sha256_blocks_entry(torch, sha256, k6_args, block_launches["sha256_blocks"]))
+    kernels.append(with_chain_floor(k5, sha256.hash64_chain_ops(), sha_checked["round_ns"]))
+    print(f"hash64 chain floor: {k5['chain_ops']} dependent instructions -> "
+          f"{k5['chain_ms']:.6f} ms at {k5['round_ns']:.4f} ns a round; bound "
+          f"{k5['bound_ms']:.6f} ms by {k5['bound_term']} at {k5['rows']} rows on {card}")
+    kernels.append(sha256_blocks_entry(torch, card, sha256, sha_checked["sha256_blocks"],
+                                       block_launches["sha256_blocks"], sha_checked["round_ns"]))
 
     lap("phase 6")
 

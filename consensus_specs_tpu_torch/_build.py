@@ -34,7 +34,7 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # kernel name -> launches on the card since the last reset (one per
 # wrapper call that launched the kernel; CPU calls do not count)
 launches = {"g1_aggregate_scale": 0, "g2_scale_sum": 0, "hash_to_g2": 0,
-            "pairing_check": 0, "hash64": 0, "sha256_blocks": 0,
+            "pairing_check": 0, "hash64": 0, "sha256_blocks": 0, "sha256_chain": 0,
             "expand_windows": 0, "g1_msm": 0, "fr_fft": 0,
             "phase0_deltas": 0, "effective_balance": 0, "slashings": 0,
             "altair_deltas": 0, "inactivity_updates": 0, "epoch_reduce": 0,
@@ -195,14 +195,14 @@ _SIGS = {
     "pairing_check": [_VP] * 7 + [ctypes.c_int] * 3 + [_VP],
     "hash64": [_VP, _VP, ctypes.c_int, _VP],
     "sha256_blocks": [_VP, _VP, ctypes.c_int, ctypes.c_int, _VP],
+    "sha256_chain": [_VP, ctypes.c_int, _VP],
     "expand_windows": [_VP, _VP, _VP, ctypes.c_int, _VP],
     "g1_msm": [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, ctypes.c_int, _VP, _VP],
     "fr_fft": [_VP, _VP, _VP] + [ctypes.c_int] * 5 + [_VP],
     "phase0_deltas": [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP],
     "effective_balance": [_VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 4
     + [_VP],
-    "slashings": [_VP, _VP, _VP, _VP, ctypes.c_longlong] + [ctypes.c_ulonglong] * 3
-    + [_VP],
+    "slashings": [_VP, _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP],
     "altair_deltas": [_VP] * 7 + [ctypes.c_longlong, _VP, _VP],
     "inactivity_updates": [_VP] * 5 + [ctypes.c_longlong, ctypes.c_ulonglong,
                                        ctypes.c_ulonglong, ctypes.c_int, _VP],
@@ -216,7 +216,7 @@ _SIGS = {
 }
 _HOME = {"g1_aggregate_scale": "points", "g2_scale_sum": "points",
          "hash_to_g2": "htc", "pairing_check": "pairing",
-         "hash64": "sha256", "sha256_blocks": "sha256",
+         "hash64": "sha256", "sha256_blocks": "sha256", "sha256_chain": "sha256",
          "expand_windows": "msm", "g1_msm": "msm", "fr_fft": "fr_fft",
          "phase0_deltas": "epoch", "effective_balance": "epoch", "slashings": "epoch",
          "altair_deltas": "epoch", "inactivity_updates": "epoch",

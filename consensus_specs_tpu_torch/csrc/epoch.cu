@@ -24,7 +24,7 @@
 // Design: no shared memory; each pass reads its columns once and writes
 // one.  Bound: bytes (K10 36, K11 24, K12 25, K13 35, K14 19 B per lane at
 // most: 11.3, 7.5, 7.8, 11.0 and 6.0 us at 2^20 lanes and 3.35 TB/s).
-// K10-K12 and K14: one thread per validator lane, grid-stride; each
+// K10, K11 and K14: one thread per validator lane, grid-stride; each
 // 64-bit division by a run-time divisor is nvcc's software routine of
 // several tens of instructions.  K13 does up to six such divisions a lane
 // (the increment, a reward per set flag, a penalty per missing source or
@@ -39,7 +39,15 @@
 // reciprocal divisions a lane (PERF.md).  K13 applies its four (reward,
 // penalty) pairs one after another with a clamp at zero between each, as
 // the spec's loop over the deltas does: summing them first would give
-// another balance wherever a clamp bites.
+// another balance wherever a clamp bites.  K12 took the same path: one
+// lane a thread with two such divisions a target lane held it at 36% of
+// its bound; both of its divisors (the increment and the total active
+// balance, clamped below at the increment) are fixed for the launch, so
+// it divides by their reciprocals too, in the spec's truncation order
+// ((eff / inc) * adjusted, then / total, then * inc), and takes K13's
+// layout: four lanes a thread, two 16-byte loads of the balances, one
+// 4-byte load of the target bytes, the effective balance of a target
+// lane only, two 16-byte stores, occupancy x SMs blocks.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,19 +110,54 @@ k_effective_balance(const uint64_t* __restrict__ bal, const uint64_t* __restrict
   }
 }
 
-__global__ void __launch_bounds__(EPOCH_THREADS)
-k_slashings(const uint64_t* __restrict__ eff, const uint64_t* __restrict__ bal,
-            const uint8_t* __restrict__ target, uint64_t* __restrict__ out, long long n,
-            uint64_t inc, uint64_t adjusted, uint64_t total) {
-  for (long long i = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x; i < n;
-       i += (long long)gridDim.x * EPOCH_THREADS) {
-    const uint64_t b = bal[i];
-    if (target[i]) {
-      const uint64_t pen = eff[i] / inc * adjusted / total * inc;
-      out[i] = pen > b ? 0 : b - pen;
-    } else {
-      out[i] = b;
-    }
+// K12's scalars.  The host array (ops/epoch_kernels.py slashings_params)
+// holds inc, adjusted, total, then the reciprocal (m, l) of inc and of
+// total (udiv.cuh); total is read only through its reciprocal.
+#define SLASHINGS_PARAMS 7
+
+struct SlashingsArgs {
+  const uint64_t *eff, *bal;
+  const uint8_t* target;
+  uint64_t* out;
+  long long n, v_hi;             // [0, v_hi): 4-lane groups; [v_hi, n) lane by lane
+  UDiv inc_div, total_div;
+  uint64_t inc, adjusted;
+};
+
+// one lane: the penalty (eff / inc) * adjusted / total * inc of a target
+// lane, subtracted with a clamp at zero
+__device__ __forceinline__ uint64_t slashings_lane(const SlashingsArgs& a, uint64_t b, uint64_t e,
+                                                   unsigned target) {
+  if (!target) return b;
+  const uint64_t pen = udiv(udiv(e, a.inc_div) * a.adjusted, a.total_div) * a.inc;
+  return pen > b ? 0 : b - pen;
+}
+
+// lanes i .. i + 3: two 16-byte loads of the balances, one 4-byte load of
+// the target bytes, the effective balance of the target lanes alone, two
+// 16-byte stores
+__device__ __forceinline__ void slashings_vec4(const SlashingsArgs& a, long long i) {
+  const ulonglong2 b0 = *(const ulonglong2*)(a.bal + i), b1 = *(const ulonglong2*)(a.bal + i + 2);
+  const unsigned tg = *(const unsigned*)(a.target + i);
+  const uint64_t b[4] = {b0.x, b0.y, b1.x, b1.y};
+  uint64_t o[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const unsigned t = (tg >> (8 * l)) & 0xFFu;
+    o[l] = slashings_lane(a, b[l], t ? a.eff[i + l] : 0, t);
+  }
+  *(ulonglong2*)(a.out + i) = make_ulonglong2(o[0], o[1]);
+  *(ulonglong2*)(a.out + i + 2) = make_ulonglong2(o[2], o[3]);
+}
+
+// grid-stride over the 4-lane groups, then the tail lanes
+__global__ void __launch_bounds__(EPOCH_THREADS) k_slashings(SlashingsArgs a) {
+  const long long t = (long long)blockIdx.x * EPOCH_THREADS + threadIdx.x;
+  const long long step = (long long)gridDim.x * EPOCH_THREADS;
+  for (long long i = 4 * t; i < a.v_hi; i += 4 * step) slashings_vec4(a, i);
+  for (long long i = a.v_hi + t; i < a.n; i += step) {
+    const unsigned tg = a.target[i];
+    a.out[i] = slashings_lane(a, a.bal[i], tg ? a.eff[i] : 0, tg);
   }
 }
 
@@ -259,12 +302,37 @@ extern "C" int effective_balance(const void* bal, const void* eff, void* out, lo
   return (int)cudaGetLastError();
 }
 
+// params: a HOST array of SLASHINGS_PARAMS uint64, read here before the
+// launch.  The 4-lane groups start at lane 0 where the balances, the
+// effective balances and the output start on 16 bytes and the target
+// bytes on 4 (as altair_vec tests); else every lane goes one at a time.
+// As many blocks as are resident at once, fewer where a group (or a
+// lane, without groups) a thread covers the work.
 extern "C" int slashings(const void* eff, const void* bal, const void* target, void* out,
-                         long long n, unsigned long long inc, unsigned long long adjusted,
-                         unsigned long long total, void* stream) {
-  k_slashings<<<grid_for(n), EPOCH_THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)eff, (const uint64_t*)bal, (const uint8_t*)target, (uint64_t*)out, n,
-      inc, adjusted, total);
+                         long long n, const void* params, void* stream) {
+  const uint64_t* h = (const uint64_t*)params;
+  SlashingsArgs a;
+  a.eff = (const uint64_t*)eff; a.bal = (const uint64_t*)bal;
+  a.target = (const uint8_t*)target; a.out = (uint64_t*)out; a.n = n;
+  a.inc = h[0]; a.adjusted = h[1];
+  a.inc_div = udiv_make(h[3], h[4]);
+  a.total_div = udiv_make(h[5], h[6]);
+  const uintptr_t wide = (uintptr_t)eff | (uintptr_t)bal | (uintptr_t)out;
+  a.v_hi = (wide & 15) == 0 && ((uintptr_t)target & 3) == 0 ? n & ~3LL : 0;
+  static int per_sm = 0, sms = 0;
+  if (!per_sm) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k_slashings, EPOCH_THREADS, 0);
+    if (per_sm < 1) per_sm = 1;
+  }
+  long long work = a.v_hi / 4;
+  if (n - a.v_hi > work) work = n - a.v_hi;
+  long long blocks = (work + EPOCH_THREADS - 1) / EPOCH_THREADS;
+  if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
+  if (blocks < 1) blocks = 1;
+  k_slashings<<<(int)blocks, EPOCH_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -33,13 +33,14 @@ composes them per shard:
                              ``_p_inactivity`` (:418-441)
 
 The CUDA side is ``csrc/epoch.cu``: each column read once and the
-result written once; bound: bytes.  K10-K12 and K14 take one thread per
-validator lane; K13 four lanes a thread, and it divides by the exact
-reciprocals of its four divisors (:func:`reciprocal`, packed by
-:func:`altair_params`), which are fixed for the launch.  Columns
-are int64 tensors holding uint64 bits.  In torch, uint64 tensors have
-no arithmetic, so the plain versions compute on int64 lanes; that is
-exact because every lane product is guarded below 2^63 (``_guard``: the
+result written once; bound: bytes.  K10, K11 and K14 take one thread per
+validator lane; K12 and K13 four lanes a thread, and they divide by the
+exact reciprocals of their divisors (:func:`reciprocal`, packed by
+:func:`slashings_params` and :func:`altair_params`), which are fixed for
+the launch.  Columns are int64 tensors holding uint64 bits.  In torch,
+uint64 tensors have no arithmetic, so the plain versions compute on
+int64 lanes; that is exact because every lane product is guarded below
+2^63 (``_guard``: the
 JAX engine's limit is 2^64, so a state between the two limits runs the
 spec loop here and gives the same root).  The kernels take eligibility
 and activity masks as byte columns: from K15 on the mesh path, from host
@@ -388,7 +389,9 @@ def effective_balance(balances, eff, increment, down, up, max_effective_balance)
 def slashings(eff, balances, target, increment, adjusted, total_balance):
     """K12: balances after the slashing penalties of the ``target`` lanes
     (clamped at zero).  ``eff``, ``balances``: (V,) int64 holding uint64
-    bits; ``target``: (V,) bool.  Bound: bytes (:func:`slashings_bytes`)."""
+    bits; ``target``: (V,) bool.  CUDA: one launch, four lanes a thread,
+    both divisions by reciprocals from :func:`slashings_params`.  Bound:
+    bytes (:func:`slashings_bytes`)."""
     dev = _build.same_device(eff, balances, target)
     n = balances.shape[0]
     _columns(n, (eff, "eff", torch.int64), (balances, "balances", torch.int64),
@@ -397,8 +400,8 @@ def slashings(eff, balances, target, increment, adjusted, total_balance):
         return slashings_plain(eff, balances, target, increment, adjusted, total_balance)
     out = torch.empty_like(balances)
     if n:
-        _build.launch("slashings", eff, balances, target, out, n, increment, adjusted,
-                      total_balance)
+        _build.launch("slashings", eff, balances, target, out, n,
+                      slashings_params(increment, adjusted, total_balance))
     return out
 
 
@@ -450,6 +453,16 @@ def altair_params(s: AltairScalars) -> torch.Tensor:
              reward_den, s.weight_denominator, int(s.in_leak), s.inactivity_denominator]
     for d in (s.increment, reward_den, s.weight_denominator, s.inactivity_denominator):
         words += reciprocal(d)
+    return torch.tensor([mesh_epoch.bits64(w) for w in words], dtype=torch.int64)
+
+
+def slashings_params(increment: int, adjusted: int, total_balance: int) -> torch.Tensor:
+    """K12's host parameter array (``SLASHINGS_PARAMS`` words in
+    csrc/epoch.cu), int64 holding uint64 bits: the increment, the adjusted
+    total slashing balance, the total balance, then :func:`reciprocal` of
+    the increment and of the total balance."""
+    words = [increment, adjusted, total_balance, *reciprocal(increment),
+             *reciprocal(total_balance)]
     return torch.tensor([mesh_epoch.bits64(w) for w in words], dtype=torch.int64)
 
 

@@ -14,10 +14,14 @@ Counterpart of ``consensus_specs_tpu/ops/sha256.py``; the CUDA side is
   -> ``(..., 8)`` words, carried as int32 bit patterns.
 
 Both are bound by 32-bit integer operations (``hash64_int_ops``), not by
-the 96 bytes a K5 message moves; ``csrc/sha256.cu`` says what the design
-does about it.  A CUDA launch takes any n, so the JAX package's
-power-of-two padding (``_next_pow2``, there to bound XLA's program
-variants) is not carried.
+the 96 bytes a K5 message moves, and by the chain of a message's rounds
+(``hash64_chain_ops``, ``sha256_blocks_chain_ops``), which
+:func:`sha256_chain` (a measurement aid that replaces no TPU program)
+turns into time; ``csrc/sha256.cu`` says what the designs do about it.
+K6 takes one warp a CTA, each message's next block loaded ahead of its
+rounds.  A CUDA launch takes any n, so the JAX package's power-of-two
+padding (``_next_pow2``, there to bound XLA's program variants) is not
+carried.
 
 The plain versions compute on int64 lanes holding 32-bit words, masked
 after every add (torch has no uint32 add, shift or compare); they serve
@@ -179,6 +183,22 @@ def sha256_blocks_int_ops(m: int, nb: int) -> int:
     return m * nb * (64 * 10 + 48 * 8)
 
 
+def sha256_blocks_chain_ops(nb: int) -> int:
+    """K6's chain floor in dependent integer instructions, whatever the
+    number of messages: a message's nb x 64 rounds run one after another,
+    4 instructions deep each (as :func:`hash64_chain_ops`)."""
+    return nb * 64 * 4
+
+
+def sha256_chain_plain(reps: int) -> list:
+    """Plain version of the round-latency probe: ``reps`` x 64 rounds from
+    H0 with K[i] as K + W, the feed-forward after every 64 (python ints)."""
+    st = list(H0)
+    for _ in range(reps):
+        st = _rounds(st, lambda i: K[i])
+    return st
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -208,7 +228,9 @@ def hash64(rows):
 def sha256_blocks(words, num_blocks: int):
     """K6.  ``words``: int32 (..., num_blocks, 16), each message's
     pre-padded blocks as big-endian word values carried as int32 bit
-    patterns.  Returns int32 (..., 8) digest words."""
+    patterns.  Returns int32 (..., 8) digest words.  CUDA: one warp a
+    CTA, one message a thread, the next block loaded during the current
+    compression; words off 16 bytes take 4-byte loads."""
     dev = _build.same_device(words)
     if num_blocks < 1:
         raise ValueError("sha256_blocks: a padded message has at least one block")
@@ -222,6 +244,19 @@ def sha256_blocks(words, num_blocks: int):
     if m:
         _build.launch("sha256_blocks", flat, out, m, num_blocks)
     return out.reshape(lead + (8,))
+
+
+def sha256_chain(reps: int, device=None):
+    """The round-latency probe (a measurement aid; it replaces no TPU
+    program): one thread, ``reps`` x 64 dependent rounds.  Returns the
+    int32 (8,) final state; the CPU runs :func:`sha256_chain_plain`."""
+    dev = _build.device(device)
+    if dev.type == "cpu":
+        st = sha256_chain_plain(reps)
+        return torch.tensor([v - (1 << 32) if v >> 31 else v for v in st], dtype=torch.int32)
+    out = torch.empty(8, dtype=torch.int32, device=dev)
+    _build.launch("sha256_chain", out, reps)
+    return out
 
 
 def pad_message(msg: bytes) -> np.ndarray:

@@ -27,6 +27,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from consensus_specs_tpu.ops import epoch_kernels as jek
 from consensus_specs_tpu.parallel import mesh_state as jax_mesh_state
 from consensus_specs_tpu.utils import bls as jax_bls
 from consensus_specs_tpu.utils import ssz as jax_ssz
@@ -116,6 +117,7 @@ def engine_scalars():
     (``use_mesh``), across one epoch boundary of the scattered and the
     leaking ``_altair_state`` cases (64 validators)."""
     jax_mesh_state.use_fallback()
+    jax_mode = jek._mode            # the state builder switches the JAX engine to its loops
     jax_active, port_active = jax_bls.bls_active, bls.bls_active
     jax_bls.bls_active = bls.bls_active = False
     saved = (merkle._batched_hasher, merkle._batched_hasher_np, ek.altair_deltas)
@@ -146,6 +148,7 @@ def engine_scalars():
         ek.use_auto()
         mesh_state.use_auto()
         jax_mesh_state.use_auto()
+        jek._mode = jax_mode
     return seen
 
 
@@ -403,18 +406,21 @@ def test_k16_plain_on_the_edges(n, spans, m):
 # ---------------------------------------------------------------------------
 
 def test_cuda_tensors_never_take_the_plain_versions(monkeypatch):
-    """On a CUDA tensor K13 and K16 launch their kernels or raise: here the
-    build fails (no nvcc), and no plain version runs."""
+    """On a CUDA tensor K13 and K16 (and K12, which shares K13's design)
+    launch their kernels or raise: here the build fails (no nvcc), and no
+    plain version runs."""
     def no_plain(*a, **kw):
         raise AssertionError("plain version used for CUDA tensors")
     monkeypatch.setattr(ek, "altair_deltas_plain", no_plain)
+    monkeypatch.setattr(ek, "slashings_plain", no_plain)
     monkeypatch.setattr(me, "incl_scan_plain", no_plain)
     monkeypatch.setattr(_build, "same_device", lambda *t: torch.device("cuda"))
     col = torch.zeros(8, dtype=torch.int64)
     flags = torch.zeros(8, dtype=torch.uint8)
     mask = torch.zeros(8, dtype=torch.bool)
     for call in (lambda: ek.altair_deltas(col, col, col, flags, mask, mask, _scalars()),
-                 lambda: me.incl_scan(col, col, 8)):
+                 lambda: me.incl_scan(col, col, 8),
+                 lambda: ek.slashings(col, col, mask, GWEI, 0, GWEI)):
         with pytest.raises((RuntimeError, AssertionError)) as exc:
             call()
         assert "plain version used" not in str(exc.value)

@@ -93,20 +93,23 @@ def test_install_merkle_hasher_without_cuda_raises():
         sha256.sha256_bytes(b"abc")
 
 
-@pytest.mark.parametrize("k", ["hash64", "sha256_blocks"])
+@pytest.mark.parametrize("k", ["hash64", "sha256_blocks", "sha256_chain"])
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch, k):
-    """Handed CUDA tensors, a wrapper launches its kernel or raises; the
-    plain version must not run."""
+    """Handed CUDA tensors (or the card), a wrapper launches its kernel or
+    raises; the plain version must not run."""
     def no_plain(*a, **kw):
         raise AssertionError("plain version used for CUDA tensors")
     monkeypatch.setattr(sha256, "hash64_plain", no_plain)
     monkeypatch.setattr(sha256, "sha256_blocks_plain", no_plain)
+    monkeypatch.setattr(sha256, "sha256_chain_plain", no_plain)
     monkeypatch.setattr(_build, "same_device", lambda *t: torch.device("cuda"))
     with pytest.raises((RuntimeError, AssertionError)) as exc:
         if k == "hash64":
             sha256.hash64(torch.zeros((2, 64), dtype=torch.uint8))
-        else:
+        elif k == "sha256_blocks":
             sha256.sha256_blocks(torch.zeros((2, 1, 16), dtype=torch.int32), 1)
+        else:
+            sha256.sha256_chain(64, "cuda")
     assert "plain version used" not in str(exc.value)
 
 
