@@ -3,8 +3,10 @@
 mainnet-shaped block, run a mainnet phase0 block through
 ``state_transition``, run a block's blobs through the KZG library and
 PeerDAS recovery, run a mainnet phase0 epoch transition, run a mainnet
-Altair block and an Altair epoch transition (the epochs and the cold and
-post-epoch roots through the mesh engine), time.
+Altair block and an Altair epoch transition, run a mainnet Capella block
+(withdrawals and BLS-to-execution changes) and a Capella epoch transition
+(the epochs and the cold and post-epoch roots through the mesh engine),
+time.
 
     python3 chip_smoke.py [--validators N]
     python3 chip_smoke.py --probe [--root DIR] [--only K1,K18,...] [--sweep RUNS]
@@ -126,8 +128,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    validators (``--validators``) at slot 223 with the registry edges of
    ``tests/test_epoch_vectorized.py`` scattered and the 2048 committees
    of epoch 5 in ``previous_epoch_attestations`` (all bits set; no
-   signatures: epoch processing checks none), run once finalized at
-   epoch 4 and once at epoch 0 (an inactivity leak).  Each run commits 4
+   signatures: epoch processing checks none), run once at epoch 0 (an
+   inactivity leak) and, on a registry of 2^18 built the same way
+   (``QUIET_VALIDATORS``, a depth cut for the time limit), once finalized
+   at epoch 4.  Each run commits 4
    sub-transitions on the mesh engine (``parallel/mesh_epoch.py``) with
    no decline, no loop run and no guard trip; launches K10-K12 once,
    K15 ``epoch_reduce`` 3 times, K16 ``incl_scan`` once, K17
@@ -175,7 +179,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    through ``upgrade_to_altair`` (``translate_participation`` turns its
    2048 pending attestations into the previous epoch's flags), seeded
    inactivity scores (some at the scale of a long leak) and current-epoch
-   flags, run through ``process_slots`` once not leaking and once leaking.
+   flags, run through ``process_slots`` once leaking; the not-leaking run
+   takes phase 10's not-leaking registry of 2^18, upgraded the same way.
    Each run launches K14, K13, K11 and K12 once, commits 5
    sub-transitions on the engine with no loop run and no guard trip,
    moves balances, effective balances and inactivity scores once each
@@ -216,19 +221,52 @@ Phases, each fatal on failure (no phase's failure is caught):
    this run but the bounds; K8 with its per-stage times at the
    commitment, cell and verify shapes; K7 at every launched shape and K4
    at every path's shape, each with its launches), the card line and the
-   result line.
+   result line;
+17. (run right after phase 13) a mainnet Capella block through the
+   port's ``state_transition`` on the card (``build_spec("capella",
+   "mainnet")``): phase 13's 2^20-validator pre-state through
+   ``upgrade_to_bellatrix`` (with a non-empty payload header: the chain
+   went through the merge) and ``upgrade_to_capella``, 16 partial
+   withdrawals seeded within the sweep's first 16,384 lanes (``0x01``
+   credentials, 32 ETH effective, balance above it) before the cold root,
+   and a block at slot 3 with phase 13's attestations and sync aggregate
+   signed under the Capella fork version, a payload whose withdrawals are
+   ``get_expected_withdrawals``, 16 ``SignedBLSToExecutionChange``s of
+   validators whose ``0x00`` credentials come from their own registry
+   keys (signed under ``DOMAIN_BLS_TO_EXECUTION_CHANGE``), the proposer
+   signature and the randao reveal - 147 RLC items.  It must pass with
+   one product pairing, the post-state's hashlib root must equal the
+   block's ``state_root``, the withdrawal cursors must advance as the
+   spec says and the changes apply, a forged BLS-change signature must be
+   named alone and a wrong ``state_root`` must raise; the K1-K5 and K18
+   calls are held as in phase 13, and K1-K4 timed at the flush's shapes
+   (per call queued ahead); the upgrades, ``process_withdrawals``,
+   the flush, the changes' share of the flush (the block's items with and
+   without them, in turns) and the transition are timed;
+18. (run right after phase 14) a mainnet Capella epoch transition:
+   phase 14's Altair base through the two upgrades, run once through
+   ``process_slots`` leaking (its slashed validators' penalties due,
+   ``slashings`` at which multipliers 3 and 2 differ) on the mesh engine
+   as phase 14 runs (K14, K13, K11, K12 once each, K15 4 times, K17 once,
+   K18 in the commits, every call held), ending at the hashlib root of a
+   fresh deserialization; K13's recorded inactivity scalar must be
+   ``INACTIVITY_SCORE_BIAS * INACTIVITY_PENALTY_QUOTIENT_BELLATRIX`` and
+   K12's adjusted total Bellatrix's multiplier 3 of ``slashings``; K13 and
+   K12 are timed per launch; at 4,096 validators the spec loops, the
+   columnar engine and the mesh engine give identical roots, leaking and
+   not.
 
-The hashlib roots of phases 6, 10, 13 and 14 (a fresh deserialization of
-each 2^20-validator state, hashed without the batched hasher) are
-recomputed in three worker processes while the run goes on; the run
-waits for all of them, and fails on any that differs, before phase 16's
-result lines.
+The hashlib roots of phases 6, 10, 13, 14, 17 and 18 (a fresh
+deserialization of each 2^20-validator state, hashed without the batched
+hasher) are recomputed in three worker processes while the run goes on;
+the run waits for all of them, and fails on any that differs, before
+phase 16's result lines.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
 KeyValidate (decompression and subgroup check, ~31 ms of python per key,
 paid once per registry key, not per block) dominates set-up otherwise;
-the 2^20 validators of phases 6, 10, 13 and 14 cycle over those keys.  The
+the 2^20 validators of phases 6, 10, 13, 14, 17 and 18 cycle over those keys.  The
 device work per block does not depend on the number of distinct keys; on
 the host, the cycled keys also keep the spec's linear pubkey search in
 ``process_sync_aggregate`` cheap (every key occurs within the first 1,024
@@ -634,6 +672,34 @@ def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
     return state
 
 
+def two_rejections(spec, state, block, signed, forged, item: int, what: str, tag: str) -> None:
+    """``forged`` (``block`` with one signature replaced; ``what``) must
+    raise in ``state_transition`` of a copy of ``state`` with
+    ``last_results`` naming its batch item ``item`` alone, and ``block``
+    with a wrong ``state_root`` must raise at the root check with every
+    signature passing.  ``signed`` signs a block message as its
+    proposer."""
+    from consensus_specs_tpu_torch.utils import bls
+    wrong = block.copy()
+    wrong.state_root = b"\x01" * 32
+    bls.clear_verify_memo()
+    batches = []
+    for msg, name in ((forged, what), (wrong, "a wrong state_root")):
+        with bls.scoped_batch(bls.DeferredBatch()) as batch:
+            try:
+                spec.state_transition(state.copy(), signed(msg))
+                fail(f"{tag}: {name} passed state_transition")
+            except AssertionError:
+                pass
+        batches.append(batch)
+    failed = [i for i, ok in enumerate(batches[0].last_results) if not ok]
+    check(failed == [item], f"{tag}: {what} not isolated: {failed}")
+    check(batches[1].last_results is not None and all(batches[1].last_results),
+          f"{tag}: the wrong-root block must fail at the root check, not at a signature")
+    print(f"{tag}: {what}: AssertionError, last_results names item {failed} alone; a wrong "
+          f"state_root: AssertionError at the state-root check (signatures passed)")
+
+
 def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     """Phase 6: a mainnet phase0 block through ``state_transition`` on
     ``dev``.  Returns the K5 entry of the ``kernels`` line, the launch
@@ -736,11 +802,7 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
           f"computed, {t_comm / len(committees) * 1e3:.1f} ms each), signing "
           f"{t_sign:.2f} s (host)")
 
-    prop_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_PROPOSER)
-
-    def signed(msg):
-        sig = O.Sign(sk_of(proposer), spec.compute_signing_root(msg, prop_domain))
-        return spec.SignedBeaconBlock(message=msg, signature=sig)
+    signed = proposer_signer(spec, dry, sks, proposer)
 
     # the state root from a dry run of the transition on the copy
     bls.bls_active = False
@@ -837,31 +899,9 @@ def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
     # -- the two rejections ---------------------------------------------------------
     forged = block.copy()
     forged.body.attestations[FORGED].signature = forged.body.attestations[0].signature
-    bls.clear_verify_memo()
-    bad_state = state.copy()
-    with bls.scoped_batch(bls.DeferredBatch()) as batch:
-        try:
-            spec.state_transition(bad_state, signed(forged))
-            fail("a forged attestation signature passed state_transition")
-        except AssertionError:
-            pass
-    failed = [i for i, ok in enumerate(batch.last_results) if not ok]
-    check(failed == [FORGED + 2], f"forged attestation not isolated: {failed}")
-    print(f"forged attestation {FORGED}: AssertionError, last_results names item {failed} "
-          f"alone (items: proposer, randao, attestations)")
-    wrong = block.copy()
-    wrong.state_root = b"\x01" * 32
-    bad_state = state.copy()
-    with bls.scoped_batch(bls.DeferredBatch()) as batch:
-        try:
-            spec.state_transition(bad_state, signed(wrong))
-            fail("a wrong state_root passed state_transition")
-        except AssertionError:
-            pass
-    check(batch.last_results is not None and all(batch.last_results),
-          "the wrong-root block must fail at the root check, not at a signature")
-    print("wrong state_root: AssertionError at the state-root check (signatures passed)")
-    del bad_state
+    # items: the proposer signature, the randao reveal, the attestations
+    two_rejections(spec, state, block, signed, forged, FORGED + 2,
+                   f"a forged attestation {FORGED} signature", "phase0")
 
     # -- K5 at the transition's shapes, the cold root's largest launch and one
     # launch per level; timings ------------------------------------------------------
@@ -1844,6 +1884,7 @@ def slice3_entries(torch, card, blob, das, err, launches) -> list:
 
 EPOCH_SLOT = 32 * 7 - 1     # the next slot crosses into epoch 7
 REDUCED_VALIDATORS = 4096   # the registry at which the spec loops still finish
+QUIET_VALIDATORS = 1 << 18  # the not-leaking runs of phases 10 and 14 (a depth cut)
 EPOCH_KERNELS = ("phase0_deltas", "effective_balance", "slashings")
 EPOCH_REPLACES = {
     "phase0_deltas": "consensus_specs_tpu/ops/epoch_kernels.py:205",
@@ -1886,6 +1927,7 @@ EPOCH_PATHS = {
                # balances, inactivity scores, the new current participation
                "k18": lambda n: [-(-n // 4), -(-n // 4), -(-n // 32)]},
 }
+EPOCH_PATHS["capella"] = EPOCH_PATHS["altair"]
 
 
 def epoch_plain(ek) -> dict:
@@ -2299,15 +2341,28 @@ def epoch_phase(torch, dev, card, pks, n_validators: int) -> dict:
           f"set-up: build {t_build:.2f} s, cold root {t_cold:.3f} s on K5 ({cold.hex()[:16]}), "
           f"column extraction {t_extract:.2f} ms (registry and balances, once per lineage: "
           f"the runs' forks share them) on {card}")
-    runs = {"not_leaking": epoch_run(torch, dev, card, spec, base, "not leaking")}
+    quiet = None
+    if n_validators > QUIET_VALIDATORS:
+        # a depth cut for the time limit (PERF.md §4): the not-leaking run
+        # on a registry of 2^18 built the same way; the leaking run, whose
+        # calls the K10-K12 rows time, keeps the whole registry
+        t0 = time.perf_counter()
+        quiet = epoch_state(spec, ssz, np, pks, QUIET_VALIDATORS, seed=4)
+        ssz.hash_tree_root(quiet)
+        print(f"epoch: the not-leaking run at {QUIET_VALIDATORS} validators (a depth cut); its "
+              f"state built and hashed in {time.perf_counter() - t0:.2f} s")
+    runs = {"not_leaking": epoch_run(torch, dev, card, spec, base if quiet is None else quiet,
+                                      "not leaking")}
     runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two runs must be one not leaking and one leaking")
     n = REDUCED_VALIDATORS
     reduced_epoch_leg(torch, dev, spec, epoch_state(spec, ssz, np, pks, n, seed=n), n)
     bls.bls_active = True
-    # phase 14 upgrades the untouched base to Altair
-    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold, "base": base}
+    # phase 14 upgrades the untouched states to Altair (``quiet``: the
+    # not-leaking run's own registry, None where it ran on ``base``)
+    return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold, "base": base,
+            "quiet": quiet}
 
 
 def epoch_bound_counts(ek, name, args, in_leak) -> tuple:
@@ -2356,12 +2411,13 @@ def epoch_entries(torch, card, phase, names=EPOCH_KERNELS) -> list:
                     "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
                     "lanes": int(args[0].numel()), "bytes": nbytes, "ops": ops,
                     "back_to_back_ms": back_ms, "not_leaking_ms": q_ms,
-                    "not_leaking_bound_ms": q_bound})
+                    "not_leaking_bound_ms": q_bound, "not_leaking_lanes": int(quiet[0].numel())})
         print(f"time {name} at {args[0].numel()} lanes: {ms:.4f} ms per launch queued ahead "
               f"({back_ms:.4f} ms per wrapper call back to back, host launch included; plain on the "
               f"card {p_ms:.3f} ms, bound {max(b_ms, o_ms):.5f} ms: bytes {nbytes} -> "
               f"{b_ms:.5f} ms, operations {ops} -> {o_ms:.5f} ms); at the not-leaking run's call "
-              f"{q_ms:.4f} ms queued ahead (bound {q_bound:.5f} ms); launches per epoch "
+              f"({quiet[0].numel()} lanes) {q_ms:.4f} ms queued ahead (bound {q_bound:.5f} ms); "
+              f"launches per epoch "
               f"{launches} on {card}")
     return out
 
@@ -2525,6 +2581,125 @@ def altair_epoch_state(spec, ssz, np, pre, seed: int):
     return state
 
 
+def signed_body(spec, dry, sks, pks, proposer) -> dict:
+    """The signed parts of the Altair-family blocks of phases 13 and 17
+    on ``dry`` (the pre-state at ``BLOCK_SLOT``), signed under its fork
+    version: the attestations of the committees of slots 1 and 2 (every
+    bit set, each signed with the sum of its members' secret keys), the
+    randao reveal, and the current sync committee's aggregate of the
+    previous slot's block root with a seeded ~1/16 of its members
+    abstaining."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+
+    def sk_of(v):
+        return sks[v % len(sks)]
+
+    t0 = time.perf_counter()
+    committees = {(s, c): spec.get_beacon_committee(dry, s, c)
+                  for s in (1, 2)
+                  for c in range(int(spec.get_committee_count_per_slot(dry, 0)))}
+    t_comm = time.perf_counter() - t0
+    att_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_ATTESTER, 0)
+    t0 = time.perf_counter()
+    atts = []
+    for (s, c), members in committees.items():
+        data = spec.AttestationData(
+            slot=s, index=c, beacon_block_root=spec.get_block_root_at_slot(dry, s),
+            source=dry.current_justified_checkpoint,
+            target=spec.Checkpoint(epoch=0, root=spec.get_block_root(dry, 0)))
+        sk = sum(sk_of(v) for v in members) % R_ORDER
+        atts.append(spec.Attestation(
+            aggregation_bits=[True] * len(members), data=data,
+            signature=O.Sign(sk, spec.compute_signing_root(data, att_domain))))
+    randao = O.Sign(sk_of(proposer), spec.compute_signing_root(
+        spec.uint64(0), spec.get_domain(dry, spec.DOMAIN_RANDAO)))
+    bits = (np.random.default_rng(13).random(SYNC) >= 1 / 16).tolist()
+    sk_of_pk = dict(zip(pks, sks))
+    members = [bytes(pk) for pk in dry.current_sync_committee.pubkeys]
+    sync_root = spec.compute_signing_root(
+        spec.get_block_root_at_slot(dry, BLOCK_SLOT - 1),
+        spec.get_domain(dry, spec.DOMAIN_SYNC_COMMITTEE, 0))
+    sync_sk = sum(sk_of_pk[pk] for pk, b in zip(members, bits) if b) % R_ORDER
+    sync = spec.SyncAggregate(sync_committee_bits=bits,
+                              sync_committee_signature=O.Sign(sync_sk, sync_root))
+    return {"atts": atts, "randao": randao, "sync": sync, "bits": bits,
+            "n_keys": sum(len(m) for m in committees.values()) + sum(bits) + 2,
+            "comm_s": t_comm, "sign_s": time.perf_counter() - t0}
+
+
+def proposer_signer(spec, dry, sks, proposer):
+    """A function signing a block message as ``proposer`` on ``dry``."""
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    domain = spec.get_domain(dry, spec.DOMAIN_BEACON_PROPOSER)
+
+    def signed(msg):
+        sig = O.Sign(sks[proposer % len(sks)], spec.compute_signing_root(msg, domain))
+        return spec.SignedBeaconBlock(message=msg, signature=sig)
+    return signed
+
+
+def card_transition(torch, spec, state, signed_block, stages) -> dict:
+    """``state_transition`` of a copy of ``state`` on the card in a batch
+    scope of its own, the verify memo cleared, every K1-K4 call and the
+    first K5 call of every row count recorded, the ``stages`` (spec
+    methods), the flush and the G2 decompression timed.  Returns the
+    post-state, the batch, the launches, the recorders, the stage ms and
+    the total ms."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_torch, sha256
+    from consensus_specs_tpu_torch.utils import bls
+    clock = StageClock()
+    post = state.copy()
+    for name in stages:
+        clock.wrap(spec, name)
+    clock.wrap(bls.DeferredBatch, "flush")
+    clock.wrap(bls_torch, "_decompress_g2")
+    bls.clear_verify_memo()
+    recorders = [CallRecorder(torch, bls_torch, k) for k in KERNELS]
+    recorders.append(CallRecorder(torch, sha256, "hash64", first_of_shape=True))
+    torch.cuda.synchronize()
+    for r in recorders:
+        r.__enter__()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with bls.scoped_batch(bls.DeferredBatch()) as batch:
+            spec.state_transition(post, signed_block)
+        torch.cuda.synchronize()
+    finally:
+        for r in reversed(recorders):
+            r.__exit__()
+        clock.restore()
+    return {"post": post, "batch": batch, "launches": dict(_build.launches),
+            "recorders": recorders, "ms": clock.ms,
+            "total_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def hold_new_shapes(torch, recorders, held: set, tag: str) -> dict:
+    """Hold the recorded K1-K5 calls against their plain versions (K4's
+    GT values too), but for those at a (kernel, argument shapes) that
+    phase 4 held (``held``); returns {kernel: largest word difference}."""
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
+    plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
+             "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
+             "pairing_check": k4_gt_plain(torch, pairing), "hash64": sha256.hash64_plain}
+    skipped = {}
+    for r in recorders:
+        keep = [i for i, (a, _) in enumerate(r.calls) if (r.name, str(r.shapes(a))) not in held]
+        skipped[r.name] = len(r.calls) - len(keep)
+        r.calls = [r.calls[i] for i in keep]
+        r.kwargs = [r.kwargs[i] for i in keep]
+    err = {r.name: r.hold(plain[r.name]) for r in recorders}
+    print(f"{tag}: every K1-K4 call of the transition (K4's GT values too) at a shape phase 4 "
+          f"did not hold, and the first K5 call of every row count, held against their plain "
+          f"versions ({ {r.name: r.count for r in recorders} } calls; at phase 4's shapes, "
+          f"held there: {skipped})")
+    return err
+
+
 def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     """Phase 13: a mainnet Altair block through ``state_transition`` on
     ``dev``: the state is ``upgrade_to_altair`` of phase 6's phase0 state
@@ -2534,13 +2709,9 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     (kernel, argument shapes) that phase 4 held against the plain
     versions; the transition's K1-K4 calls at other shapes are held
     here."""
-    import numpy as np
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.forks import build_spec
-    from consensus_specs_tpu_torch.ops import bls_torch, sha256
-    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
-    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
-    from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
+    from consensus_specs_tpu_torch.ops import sha256
     from consensus_specs_tpu_torch.parallel import mesh_merkle
     from consensus_specs_tpu_torch.utils import bls, ssz
 
@@ -2576,60 +2747,23 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
           f"{sorted(a[0].shape[0] for a, _ in spans.calls)}, each held against its plain "
           f"version (the root is checked through the block's state_root below) on {card}")
 
-    sk_of_pk = dict(zip(pks, sks))
     dry = state.copy()
     t0 = time.perf_counter()
     spec.process_slots(dry, BLOCK_SLOT)
     t_slots_dry = time.perf_counter() - t0
     proposer = int(spec.get_beacon_proposer_index(dry))
-
-    def sk_of(v):
-        return sks[v % len(sks)]
-
-    t0 = time.perf_counter()
-    committees = {(s, c): spec.get_beacon_committee(dry, s, c)
-                  for s in (1, 2)
-                  for c in range(int(spec.get_committee_count_per_slot(dry, 0)))}
-    t_comm = time.perf_counter() - t0
-    att_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_ATTESTER, 0)
-    t0 = time.perf_counter()
-    atts = []
-    for (s, c), members in committees.items():
-        data = spec.AttestationData(
-            slot=s, index=c, beacon_block_root=spec.get_block_root_at_slot(dry, s),
-            source=dry.current_justified_checkpoint,
-            target=spec.Checkpoint(epoch=0, root=spec.get_block_root(dry, 0)))
-        sk = sum(sk_of(v) for v in members) % R_ORDER
-        atts.append(spec.Attestation(
-            aggregation_bits=[True] * len(members), data=data,
-            signature=O.Sign(sk, spec.compute_signing_root(data, att_domain))))
-    randao = O.Sign(sk_of(proposer), spec.compute_signing_root(
-        spec.uint64(0), spec.get_domain(dry, spec.DOMAIN_RANDAO)))
-    # the sync aggregate: the current committee signs the previous slot's
-    # block root; a seeded ~1/16 of its members abstain
-    bits = (np.random.default_rng(13).random(SYNC) >= 1 / 16).tolist()
-    members = [bytes(pk) for pk in dry.current_sync_committee.pubkeys]
-    sync_root = spec.compute_signing_root(
-        spec.get_block_root_at_slot(dry, BLOCK_SLOT - 1),
-        spec.get_domain(dry, spec.DOMAIN_SYNC_COMMITTEE, 0))
-    sync_sk = sum(sk_of_pk[pk] for pk, b in zip(members, bits) if b) % R_ORDER
-    sync = spec.SyncAggregate(sync_committee_bits=bits,
-                              sync_committee_signature=O.Sign(sync_sk, sync_root))
-    t_sign = time.perf_counter() - t0
+    parts = signed_body(spec, dry, sks, pks, proposer)
+    atts, bits = parts["atts"], parts["bits"]
     block = spec.BeaconBlock(
         slot=BLOCK_SLOT, proposer_index=proposer,
         parent_root=ssz.hash_tree_root(dry.latest_block_header),
-        body=spec.BeaconBlockBody(randao_reveal=randao, eth1_data=dry.eth1_data,
-                                  attestations=atts, sync_aggregate=sync))
-    n_keys = sum(len(m) for m in committees.values()) + sum(bits) + 2
+        body=spec.BeaconBlockBody(randao_reveal=parts["randao"], eth1_data=dry.eth1_data,
+                                  attestations=atts, sync_aggregate=parts["sync"]))
     print(f"altair block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations, "
           f"a sync aggregate of {sum(bits)} of {SYNC} members, {len(atts) + 3} RLC items, "
-          f"{n_keys} keys; set-up: committees {t_comm:.2f} s, signing {t_sign:.2f} s (host)")
-    prop_domain = spec.get_domain(dry, spec.DOMAIN_BEACON_PROPOSER)
-
-    def signed(msg):
-        sig = O.Sign(sk_of(proposer), spec.compute_signing_root(msg, prop_domain))
-        return spec.SignedBeaconBlock(message=msg, signature=sig)
+          f"{parts['n_keys']} keys; set-up: committees {parts['comm_s']:.2f} s, signing "
+          f"{parts['sign_s']:.2f} s (host)")
+    signed = proposer_signer(spec, dry, sks, proposer)
 
     bls.bls_active = False
     t0 = time.perf_counter()
@@ -2642,37 +2776,16 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
           f"{t_dry:.2f} s")
 
     # -- the transition on the card, every K1-K5 call recorded ------------------
-    clock = StageClock()
-    post = state.copy()
-    good = signed(block.copy())
-    for name in ("process_slots", "process_block", "process_sync_aggregate",
-                 "process_attestation"):
-        clock.wrap(spec, name)
-    clock.wrap(bls.DeferredBatch, "flush")
-    clock.wrap(bls_torch, "_decompress_g2")
-    bls.clear_verify_memo()
-    recorders = [CallRecorder(torch, bls_torch, k) for k in KERNELS]
-    recorders.append(CallRecorder(torch, sha256, "hash64", first_of_shape=True))
-    torch.cuda.synchronize()
-    for r in recorders:
-        r.__enter__()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    with bls.scoped_batch(bls.DeferredBatch()) as batch:
-        spec.state_transition(post, good)
-    torch.cuda.synchronize()
-    t_total = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launches)
-    for r in reversed(recorders):
-        r.__exit__()
-    clock.restore()
+    tr = card_transition(torch, spec, state, signed(block.copy()),
+                         ("process_slots", "process_block", "process_sync_aggregate",
+                          "process_attestation"))
+    batch, launches, ms, t_total = tr["batch"], tr["launches"], tr["ms"], tr["total_ms"]
     path_kernels = KERNELS + ("hash64",)
     check(batch.pairings == 1, f"altair: expected one product pairing, got {batch.pairings}")
     check(batch.last_results == [True] * (len(atts) + 3),
           f"altair: last_results must be {len(atts) + 3} x True")
     check(all(launches[k] > 0 for k in path_kernels),
           f"altair: a kernel of the transition was not launched: {launches}")
-    ms = clock.ms
     rest = ms["process_block"] - ms["process_attestation"] - ms["process_sync_aggregate"] \
         - ms["flush"]
     print(f"altair state_transition: passed with {batch.pairings} product pairing, "
@@ -2686,62 +2799,30 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
           f"state-root check and block signature "
           f"{t_total - ms['process_slots'] - ms['process_block']:.2f} on {card}")
     hashlib_roots.submit("the Altair block's post-state (the block's state_root)", spec, ssz,
-                         post, bytes(block.state_root))
-    del post
-    plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
-             "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
-             "pairing_check": k4_gt_plain(torch, pairing), "hash64": sha256.hash64_plain}
-    skipped = {}
-    for r in recorders:
-        keep = [i for i, (a, _) in enumerate(r.calls) if (r.name, str(r.shapes(a))) not in held]
-        skipped[r.name] = len(r.calls) - len(keep)
-        r.calls = [r.calls[i] for i in keep]
-        r.kwargs = [r.kwargs[i] for i in keep]
-    err = {r.name: r.hold(plain[r.name]) for r in recorders}
-    print(f"altair: every K1-K4 call of the transition (K4's GT values too) at a shape phase 4 "
-          f"did not hold, and the first K5 call of every row count, held against their plain "
-          f"versions ({ {r.name: r.count for r in recorders} } calls; at phase 4's shapes, "
-          f"held there: {skipped})")
+                         tr["post"], bytes(block.state_root))
+    del tr["post"]
+    err = hold_new_shapes(torch, tr["recorders"], held, "altair")
 
     # -- the two rejections --------------------------------------------------------
     forged = block.copy()
     forged.body.sync_aggregate.sync_committee_signature = atts[0].signature
-    bls.clear_verify_memo()
-    bad_state = state.copy()
-    with bls.scoped_batch(bls.DeferredBatch()) as batch:
-        try:
-            spec.state_transition(bad_state, signed(forged))
-            fail("a forged sync-aggregate signature passed state_transition")
-        except AssertionError:
-            pass
-    failed = [i for i, ok in enumerate(batch.last_results) if not ok]
     # items: the proposer signature, the randao reveal, the attestations,
     # the sync aggregate last
-    check(failed == [len(atts) + 2], f"forged sync aggregate not isolated: {failed}")
-    print(f"forged sync aggregate: AssertionError, last_results names item {failed} alone "
-          f"(items: proposer, randao, attestations, sync aggregate)")
-    wrong = block.copy()
-    wrong.state_root = b"\x01" * 32
-    bad_state = state.copy()
-    with bls.scoped_batch(bls.DeferredBatch()) as batch:
-        try:
-            spec.state_transition(bad_state, signed(wrong))
-            fail("a wrong state_root passed the altair state_transition")
-        except AssertionError:
-            pass
-    check(batch.last_results is not None and all(batch.last_results),
-          "altair: the wrong-root block must fail at the root check, not at a signature")
-    print("altair wrong state_root: AssertionError at the state-root check (signatures passed)")
+    two_rejections(spec, state, block, signed, forged, len(atts) + 2,
+                   "a forged sync-aggregate signature", "altair")
+    # phase 17 takes the pre-state on to Capella
     return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
             "transition_ms": t_total, "upgrade_s": t_up, "k18_launches": cold_launches,
-            "k18_err": k18_err}
+            "k18_err": k18_err, "state": state}
 
 
-def altair_epoch_phase(torch, dev, card, pks, pre, err: int) -> dict:
+def altair_epoch_phase(torch, dev, card, pks, pre, quiet_pre, err: int) -> dict:
     """Phase 14: an Altair epoch transition of phase 10's registry (2^20
-    validators, upgraded) through ``process_slots`` on the card, not
-    leaking and leaking; the reduced leg at 4,096 validators.  ``err``:
-    phase 12's largest K13/K14 word difference."""
+    validators, upgraded) through ``process_slots`` on the card, leaking,
+    and of phase 10's not-leaking registry (``quiet_pre``: its 2^18 one, or
+    None for ``pre`` itself) not leaking; the reduced leg at 4,096
+    validators.
+    ``err``: phase 12's largest K13/K14 word difference."""
     import numpy as np
     from consensus_specs_tpu_torch.forks import build_spec
     from consensus_specs_tpu_torch.ops import sha256
@@ -2774,21 +2855,362 @@ def altair_epoch_phase(torch, dev, card, pks, pre, err: int) -> dict:
           f"head {int((flags & 4).astype(bool).sum())} lanes); set-up: upgrade and scatter "
           f"{t_build:.2f} s, cold root {t_cold:.3f} s on K5 ({cold.hex()[:16]}), column "
           f"extraction {t_extract:.2f} ms on {card}")
+    p0 = build_spec("phase0", "mainnet")
+    quiet = base
+    if quiet_pre is not None:
+        # phase 10's depth cut carried on: the not-leaking run on its 2^18
+        # registry, upgraded the same way
+        t0 = time.perf_counter()
+        quiet = altair_epoch_state(spec, ssz, np, quiet_pre, seed=14)
+        del quiet_pre
+        ssz.hash_tree_root(quiet)
+        print(f"altair epoch: the not-leaking run at {len(quiet.validators)} validators (phase "
+              f"10's depth cut); its state upgraded and hashed in "
+              f"{time.perf_counter() - t0:.2f} s")
     bls.bls_active = False              # epoch processing verifies no signature
-    runs = {"not_leaking": epoch_run(torch, dev, card, spec, base, "altair not leaking")}
+    runs = {"not_leaking": epoch_run(torch, dev, card, spec, quiet, "altair not leaking")}
+    del quiet
     runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "altair leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two altair runs must be one not leaking and one leaking")
-    del base
     bls.bls_active = True
     n = REDUCED_VALIDATORS
-    p0 = build_spec("phase0", "mainnet")
     small = altair_epoch_state(spec, ssz, np, epoch_state(p0, ssz, np, pks, n, seed=n), seed=n)
     bls.bls_active = False
     reduced_epoch_leg(torch, dev, spec, small, n)
     bls.bls_active = True
+    # phase 18 upgrades the untouched base and the reduced leg's state to Capella
     return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold,
-            "build_s": t_build}
+            "build_s": t_build, "base": base, "small": small}
+
+
+# ---------------------------------------------------------------------------
+# slice 14: the Bellatrix and Capella runtimes (a mainnet Capella block with
+# withdrawals and BLS-to-execution changes, a Capella epoch transition)
+# ---------------------------------------------------------------------------
+
+CHANGES = 16                # MAX_BLS_TO_EXECUTION_CHANGES
+WITHDRAWALS = 16            # MAX_WITHDRAWALS_PER_PAYLOAD
+
+
+def seeded_bytes(tag: bytes, n: int) -> bytes:
+    return hashlib.sha256(SEED + tag).digest()[:n]
+
+
+def after_merge(spec, state):
+    """``state`` (Bellatrix) with a non-empty execution payload header, as
+    a chain that went through the merge carries: the Capella paths run
+    after it."""
+    state.latest_execution_payload_header = spec.ExecutionPayloadHeader(
+        parent_hash=seeded_bytes(b"el parent", 32), fee_recipient=seeded_bytes(b"el fee", 20),
+        state_root=seeded_bytes(b"el state", 32), receipts_root=seeded_bytes(b"el receipts", 32),
+        prev_randao=seeded_bytes(b"el randao", 32), block_number=17_034_869,
+        gas_limit=30_000_000, gas_used=14_100_021, timestamp=int(state.genesis_time),
+        base_fee_per_gas=27_000_000_000, block_hash=seeded_bytes(b"el block", 32),
+        transactions_root=seeded_bytes(b"el txs", 32))
+    return state
+
+
+def to_capella(state):
+    """An Altair ``state`` through ``upgrade_to_bellatrix`` (then the
+    merge, :func:`after_merge`) and ``upgrade_to_capella``; returns (the
+    Capella spec, the state, seconds of each upgrade)."""
+    from consensus_specs_tpu_torch.forks import build_spec
+    bspec, spec = build_spec("bellatrix", "mainnet"), build_spec("capella", "mainnet")
+    t0 = time.perf_counter()
+    mid = after_merge(bspec, bspec.upgrade_to_bellatrix(state))
+    t1 = time.perf_counter()
+    out = spec.upgrade_to_capella(mid)
+    return spec, out, (t1 - t0, time.perf_counter() - t1)
+
+
+def capella_lanes(n: int, keys: int) -> tuple:
+    """(the lanes seeded for partial withdrawals, within the sweep's first
+    16,384 and past the first ``keys``: a sync-committee reward goes to
+    the first lane of a member's key, and no other payment of the block
+    reaches these lanes but the proposer's; the lanes that send a
+    BLS-to-execution change)."""
+    step = min(n, 16384) // (2 * WITHDRAWALS)
+    withdrawn = [keys + 37 + k * step for k in range(WITHDRAWALS)]
+    changed = [n - 1 - 97 * k for k in range(CHANGES)]
+    check(withdrawn[-1] < min(n, 16384) and not set(withdrawn) & set(changed)
+          and min(changed) > 0, f"capella lanes at {n} validators")
+    return withdrawn, changed
+
+
+def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
+    """Phase 17: a mainnet Capella block through ``state_transition`` on
+    ``dev``: phase 13's Altair pre-state (2^20 validators) through
+    ``upgrade_to_bellatrix`` and ``upgrade_to_capella``, 16 partial
+    withdrawals seeded in the sweep's first 16,384 lanes (``0x01``
+    credentials, 32 ETH effective, balance above it), a block at slot 3
+    with phase 13's attestations and sync aggregate signed under the
+    Capella fork version, a payload whose withdrawals are the expected
+    ones, 16 BLS-to-execution changes of validators whose ``0x00``
+    credentials come from their own registry keys, the proposer signature
+    and the randao reveal (147 RLC items).  ``held`` as in phase 13."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_torch
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.parallel import mesh_merkle
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.hash_function import hash as sha
+
+    n = len(pre.validators)
+    withdrawn, changed = capella_lanes(n, len(pks))
+    _build.reset_launches()
+    with CallRecorder(torch, mesh_merkle, "merkle_levels") as spans:
+        spec, state, t_up = to_capella(pre)
+        del pre
+        # the partial withdrawals: 0x01 credentials and an excess balance
+        max_eb = int(spec.MAX_EFFECTIVE_BALANCE)
+        for k, v in enumerate(withdrawn):
+            state.validators[v].withdrawal_credentials = (
+                spec.ETH1_ADDRESS_WITHDRAWAL_PREFIX + b"\x00" * 11
+                + seeded_bytes(b"withdraw" + bytes([k]), 20))
+            state.balances[v] = max_eb + 1_000_003 * (k + 1)
+        t0 = time.perf_counter()
+        cold = bytes(ssz.hash_tree_root(state))
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+    cold_launches = _build.launches["merkle_levels"]
+    # the span build: the registry's tree, built again in the new state as
+    # in phase 13's upgrade (the other lists keep their trees)
+    k18_check("capella: the upgrades and the cold root", spans.calls, cold_launches, [n])
+    k18_err = spans.hold(mesh_merkle.merkle_levels_plain)
+    for v in changed:
+        check(bytes(state.validators[v].withdrawal_credentials)
+              == spec.BLS_WITHDRAWAL_PREFIX + sha(pks[v % len(pks)])[1:],
+              f"capella: validator {v} lacks its own key's 0x00 credentials")
+    print(f"capella: upgrade_to_bellatrix {t_up[0]:.2f} s and upgrade_to_capella {t_up[1]:.2f} s "
+          f"of the {n}-validator Altair state (host); {WITHDRAWALS} partial withdrawals seeded "
+          f"at lanes {withdrawn[0]}..{withdrawn[-1]}; cold root {t_cold:.3f} s on K5 "
+          f"({cold.hex()[:16]}); K18 {cold_launches} launches in {spans.count} span builds at "
+          f"leaves {sorted(a[0].shape[0] for a, _ in spans.calls)}, each held against its "
+          f"plain version on {card}")
+
+    dry = state.copy()
+    t0 = time.perf_counter()
+    spec.process_slots(dry, BLOCK_SLOT)
+    t_slots_dry = time.perf_counter() - t0
+    proposer = int(spec.get_beacon_proposer_index(dry))
+    parts = signed_body(spec, dry, sks, pks, proposer)
+    atts = parts["atts"]
+    t0 = time.perf_counter()
+    expected = spec.get_expected_withdrawals(dry)
+    t_expected = time.perf_counter() - t0
+    check([int(w.validator_index) for w in expected] == withdrawn
+          and [int(w.amount) for w in expected] == [1_000_003 * (k + 1)
+                                                     for k in range(WITHDRAWALS)],
+          f"capella: expected withdrawals {[(int(w.validator_index), int(w.amount)) for w in expected]}")
+    head = dry.latest_execution_payload_header
+    payload = spec.ExecutionPayload(
+        parent_hash=head.block_hash, fee_recipient=seeded_bytes(b"fee", 20),
+        state_root=seeded_bytes(b"el state 3", 32), receipts_root=seeded_bytes(b"receipts", 32),
+        prev_randao=spec.get_randao_mix(dry, spec.get_current_epoch(dry)),
+        block_number=head.block_number + 1, gas_limit=head.gas_limit, gas_used=63_000,
+        timestamp=spec.compute_timestamp_at_slot(dry, dry.slot), extra_data=b"chip-smoke",
+        base_fee_per_gas=head.base_fee_per_gas, block_hash=seeded_bytes(b"el block 3", 32),
+        transactions=[b"\x02" + seeded_bytes(b"tx" + bytes([k]), 32) * 3 for k in range(3)],
+        withdrawals=expected)
+    change_domain = spec.compute_domain(spec.DOMAIN_BLS_TO_EXECUTION_CHANGE,
+                                        genesis_validators_root=dry.genesis_validators_root)
+    t0 = time.perf_counter()
+    changes = []
+    for k, v in enumerate(changed):
+        msg = spec.BLSToExecutionChange(validator_index=v, from_bls_pubkey=pks[v % len(pks)],
+                                        to_execution_address=seeded_bytes(b"to" + bytes([k]), 20))
+        changes.append(spec.SignedBLSToExecutionChange(message=msg, signature=O.Sign(
+            sks[v % len(sks)], spec.compute_signing_root(msg, change_domain))))
+    t_changes = time.perf_counter() - t0
+    block = spec.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=ssz.hash_tree_root(dry.latest_block_header),
+        body=spec.BeaconBlockBody(randao_reveal=parts["randao"], eth1_data=dry.eth1_data,
+                                  attestations=atts, sync_aggregate=parts["sync"],
+                                  execution_payload=payload, bls_to_execution_changes=changes))
+    items = len(atts) + 3 + CHANGES
+    print(f"capella block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations, a "
+          f"sync aggregate of {sum(parts['bits'])} of {SYNC} members, {len(expected)} "
+          f"withdrawals (get_expected_withdrawals {t_expected * 1e3:.2f} ms), {CHANGES} "
+          f"BLS-to-execution changes, {items} RLC items, {parts['n_keys'] + CHANGES} keys; "
+          f"set-up: committees {parts['comm_s']:.2f} s, signing {parts['sign_s']:.2f} s, the "
+          f"changes {t_changes:.2f} s (host)")
+    signed = proposer_signer(spec, dry, sks, proposer)
+    bls.bls_active = False
+    t0 = time.perf_counter()
+    spec.process_block(dry, block.copy())
+    block.state_root = ssz.hash_tree_root(dry)
+    t_dry = time.perf_counter() - t0
+    bls.bls_active = True
+    del dry
+    print(f"capella dry run on a copy: process_slots {t_slots_dry:.2f} s, process_block + root "
+          f"{t_dry:.2f} s")
+
+    # -- the transition on the card, every K1-K5 call recorded, the batch's
+    # items kept ----------------------------------------------------------------
+    queued, add = [], bls.DeferredBatch.add
+
+    def keep(self, pubkeys, message, signature, memo_key=None):
+        queued.append((pubkeys, message, signature))
+        return add(self, pubkeys, message, signature, memo_key)
+    bls.DeferredBatch.add = keep
+    try:
+        tr = card_transition(torch, spec, state, signed(block.copy()),
+                             ("process_slots", "process_block", "process_withdrawals",
+                              "process_execution_payload", "process_attestation",
+                              "process_bls_to_execution_change", "process_sync_aggregate"))
+    finally:
+        bls.DeferredBatch.add = add
+    batch, launches, ms, t_total = tr["batch"], tr["launches"], tr["ms"], tr["total_ms"]
+    post = tr["post"]
+    path_kernels = KERNELS + ("hash64",)
+    check(batch.pairings == 1, f"capella: expected one product pairing, got {batch.pairings}")
+    check(batch.last_results == [True] * items, f"capella: last_results must be {items} x True")
+    check(all(launches[k] > 0 for k in path_kernels),
+          f"capella: a kernel of the transition was not launched: {launches}")
+    check(int(post.next_withdrawal_index) == WITHDRAWALS
+          and int(post.next_withdrawal_validator_index) == withdrawn[-1] + 1,
+          f"capella: withdrawal cursors {int(post.next_withdrawal_index)}, "
+          f"{int(post.next_withdrawal_validator_index)}")
+    check(all(int(post.balances[v]) == max_eb for v in withdrawn if v != proposer),
+          "capella: a withdrawn balance is not 32 ETH")
+    check(all(bytes(post.validators[v].withdrawal_credentials)
+              == spec.ETH1_ADDRESS_WITHDRAWAL_PREFIX + b"\x00" * 11
+              + bytes(c.message.to_execution_address) for v, c in zip(changed, changes)),
+          "capella: a BLS-to-execution change was not applied")
+    check(bytes(post.latest_execution_payload_header.withdrawals_root)
+          == bytes(ssz.hash_tree_root(payload.withdrawals)), "capella: withdrawals root")
+    rest = ms["process_block"] - sum(ms[k] for k in (
+        "process_withdrawals", "process_execution_payload", "process_attestation",
+        "process_bls_to_execution_change", "process_sync_aggregate", "flush"))
+    print(f"capella state_transition: passed with {batch.pairings} product pairing, "
+          f"{len(batch.last_results)} items; next_withdrawal_index {int(post.next_withdrawal_index)}, "
+          f"next_withdrawal_validator_index {int(post.next_withdrawal_validator_index)}; launches "
+          f"{ {k: launches[k] for k in path_kernels} }")
+    print(f"time capella state_transition (validate_result=True): {t_total:.2f} ms = slots "
+          f"{ms['process_slots']:.2f} + process_withdrawals {ms['process_withdrawals']:.2f} + "
+          f"process_execution_payload {ms['process_execution_payload']:.2f} + "
+          f"process_attestation x{len(atts)} {ms['process_attestation']:.2f} + "
+          f"process_bls_to_execution_change x{CHANGES} "
+          f"{ms['process_bls_to_execution_change']:.2f} + process_sync_aggregate "
+          f"{ms['process_sync_aggregate']:.2f} + flush {ms['flush']:.2f} (_decompress_g2 "
+          f"{ms['_decompress_g2']:.2f}) + rest of process_block {rest:.2f} + state-root check "
+          f"and block signature {t_total - ms['process_slots'] - ms['process_block']:.2f} on "
+          f"{card}")
+    hashlib_roots.submit("the Capella block's post-state (the block's state_root)", spec, ssz,
+                         post, bytes(block.state_root))
+    del post, tr["post"]
+    err = hold_new_shapes(torch, tr["recorders"], held, "capella")
+    # K1-K4 at the Capella flush's shapes, per call queued ahead
+    flush_calls = {r.name: r.calls[0][0] for r in tr["recorders"][:len(KERNELS)] if r.calls}
+    shapes = {name: {"shapes": [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)],
+                     "ms": queued_ms(torch, lambda: getattr(bls_torch, name)(*a), 5)}
+              for name, a in flush_calls.items()}
+    print("time at the capella flush's shapes (ms per call queued ahead): "
+          + "; ".join(f"{k} {v['shapes'][0]} {v['ms']:.3f}" for k, v in shapes.items())
+          + f" on {card}")
+
+    # -- the BLS changes' share of the flush: the block's items with and
+    # without the changes, in turns -------------------------------------------------
+    check(len(queued) == items, f"capella: {len(queued)} items queued, expected {items}")
+    change_roots = {bytes(spec.compute_signing_root(c.message, change_domain)) for c in changes}
+    without = [it for it in queued if bytes(it[1]) not in change_roots]
+    check(len(without) == items - CHANGES, "capella: the changes' items")
+
+    def flush_of(its):
+        b = bls.DeferredBatch()
+        for it in its:
+            b.add(*it)
+        check(b.flush() is True and b.pairings == 1, "capella: a timed flush failed")
+    turns = [cuda_ms(torch, lambda: flush_of(its)) for its in (queued, without, without, queued)]
+    share = (turns[0] + turns[3] - turns[1] - turns[2]) / 2
+    print(f"time capella flush: {items} items {turns[0]:.2f}, {turns[3]:.2f} ms; without the "
+          f"{CHANGES} changes {turns[1]:.2f}, {turns[2]:.2f} ms: the changes' share "
+          f"{share:.2f} ms (host work included) on {card}")
+
+    # -- the two rejections --------------------------------------------------------
+    forged = block.copy()
+    forged.body.bls_to_execution_changes[5].signature = changes[6].signature
+    # items: the proposer signature, the randao reveal, the attestations,
+    # the changes, the sync aggregate last
+    two_rejections(spec, state, block, signed, forged, 2 + len(atts) + 5,
+                   "a forged BLS-to-execution change 5", "capella")
+    return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
+            "transition_ms": t_total, "upgrade_s": t_up, "k18_launches": cold_launches,
+            "k18_err": k18_err, "withdrawals_ms": ms["process_withdrawals"],
+            "flush_ms": ms["flush"], "changes_share_ms": share, "shapes": shapes,
+            "k4_call": flush_calls.get("pairing_check")}
+
+
+def capella_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
+    """Phase 18: a Capella epoch transition of phase 14's Altair base (2^20
+    validators, its slashed validators' penalties due and ``slashings``
+    large enough that multiplier 3 and 2 give different penalties) through
+    ``upgrade_to_bellatrix`` and ``upgrade_to_capella``, run once through
+    ``process_slots`` leaking; from K13's and K12's recorded launch
+    arguments, the Bellatrix inactivity quotient and slashing multiplier;
+    K13 and K12 timed per launch; the reduced leg at 4,096 validators
+    (``small``: phase 14's).  ``err``: phase 12's largest K13/K14 word
+    difference."""
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+
+    sha256.install_merkle_hasher(dev)
+    spec, state, t_up = to_capella(base)
+    del base
+    merkle.reset_stats()
+    t0 = time.perf_counter()
+    cold = bytes(ssz.hash_tree_root(state))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    st = merkle.stats()
+    slashed_sum = sum(int(x) for x in state.slashings)
+    print(f"capella epoch state: {len(state.validators)} validators at slot {EPOCH_SLOT}; "
+          f"upgrade_to_bellatrix {t_up[0]:.2f} s, upgrade_to_capella {t_up[1]:.2f} s (host); "
+          f"cold root {t_cold:.3f} s ({cold.hex()[:16]}; pairs by K5 {st['pairs_batched']}, by "
+          f"hashlib {st['pairs_hashlib']}); slashings {slashed_sum} gwei on {card}")
+    bls.bls_active = False              # epoch processing verifies no signature
+    run = epoch_run(torch, dev, card, spec, leaking(spec, state), "capella leaking")
+    check(run["in_leak"], "the capella run must leak")
+    del state
+    # C.1 and C.2, from the launch arguments K13 and K12 received
+    s = run["calls"]["altair_deltas"][0][0][6]
+    quotient = int(spec.config.INACTIVITY_SCORE_BIAS) * int(spec.INACTIVITY_PENALTY_QUOTIENT_BELLATRIX)
+    check(s.inactivity_denominator == quotient,
+          f"K13's inactivity scalar {s.inactivity_denominator}, expected {quotient}")
+    args = run["calls"]["slashings"][0][0]
+    inc, adjusted, total = (int(x) for x in args[3:6])
+    check(adjusted == min(slashed_sum * 3, total),
+          f"K12's adjusted total {adjusted}: not multiplier 3 of {slashed_sum} (total {total})")
+    max_eb = int(spec.MAX_EFFECTIVE_BALANCE)
+    penalty = lambda m: max_eb // inc * min(slashed_sum * m, total) // total * inc  # noqa: E731
+    targets = int(args[2].sum())
+    check(penalty(3) != penalty(2) and targets > 0,
+          f"multipliers 3 and 2 must differ on the run's targets: {penalty(3)}, {penalty(2)}")
+    print(f"capella epoch: K13 took the inactivity scalar {s.inactivity_denominator} = "
+          f"INACTIVITY_SCORE_BIAS x INACTIVITY_PENALTY_QUOTIENT_BELLATRIX (Altair's would be "
+          f"{3 * quotient}); K12 the adjusted total {adjusted} = min(3 x {slashed_sum}, {total}): "
+          f"{targets} target lanes lose {penalty(3)} gwei at 32 ETH ({penalty(2)} at Altair's "
+          f"multiplier 2)")
+    plain = epoch_plain(ek)
+    times = {}
+    for name in ("altair_deltas", "slashings"):
+        a = run["calls"][name][0][0]
+        fn = getattr(ek, name)
+        times[name] = queued_ms(torch, lambda: fn(*a))
+        nbytes, ops = epoch_bound_counts(ek, name, a, True)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        print(f"time {name} at the capella epoch's call ({a[0].numel()} lanes): "
+              f"{times[name]:.4f} ms per launch queued ahead (bound {bound:.5f} ms; plain on the "
+              f"card {plain_ms(torch, lambda: plain[name](*a)):.3f} ms) on {card}")
+    _, small, _ = to_capella(small)
+    reduced_epoch_leg(torch, dev, spec, small, len(small.validators))
+    bls.bls_active = True
+    return {"runs": {"leaking": run}, "err": err, "cold_s": t_cold, "upgrade_s": t_up,
+            "ms": times}
 
 
 # ---------------------------------------------------------------------------
@@ -3846,7 +4268,7 @@ def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
-                    help="active validators of the phase0 and Altair states (default 2^20)")
+                    help="active validators of the phase0, Altair and Capella states (default 2^20)")
     ap.add_argument("--probe", action="store_true",
                     help="time the kernels through their wrappers instead of the phases")
     ap.add_argument("--root", default=None,
@@ -4230,6 +4652,20 @@ def main(argv=None) -> int:
 
     lap("phase 13")
 
+    # ---- 17. a mainnet Capella block through state_transition (phase 13's
+    # pre-state taken on through the two upgrades) ---------------------------
+    cblock = capella_block_phase(torch, cu, card, sks, pks, ablock.pop("state"), held)
+    for e in kernels:
+        if e["name"] in cblock["launches"]:
+            e["capella_block_launches"] = cblock["launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], cblock["err"][e["name"]])
+        if e["name"] in cblock["shapes"]:
+            e["capella_block_shapes"] = cblock["shapes"][e["name"]]["shapes"]
+            e["capella_block_ms"] = cblock["shapes"][e["name"]]["ms"]
+    mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], cblock["k18_err"])
+
+    lap("phase 17")
+
     # ---- 7. K7, K8 and K9 against their plain versions and the oracle --------
     err = slice3_kernel_checks(torch, cu)
 
@@ -4256,7 +4692,8 @@ def main(argv=None) -> int:
         "per-lane batch": (recorded[("lanes", "pairing_check")],
                            lane_launches["pairing_check"]),
         "blob batch verify": (blob["k4_call"], blob["k4_launches"]),
-        "cell batch verify": (das["k4_call"], das["k4_launches"])})
+        "cell batch verify": (das["k4_call"], das["k4_launches"]),
+        "capella block flush": (cblock["k4_call"], cblock["launches"]["pairing_check"])})
     kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
 
     lap("phase 9")
@@ -4277,7 +4714,8 @@ def main(argv=None) -> int:
     lap("phase 12")
 
     # ---- 14. a mainnet Altair epoch transition -----------------------------------
-    aepoch = altair_epoch_phase(torch, cu, card, pks, epoch.pop("base"), altair_err)
+    aepoch = altair_epoch_phase(torch, cu, card, pks, epoch.pop("base"), epoch.pop("quiet"),
+                                altair_err)
     for e in kernels:
         if e["name"] in ("effective_balance", "slashings"):
             e["altair_epoch_launches"] = max(r["launches"][e["name"]]
@@ -4288,10 +4726,26 @@ def main(argv=None) -> int:
 
     lap("phase 14")
 
+    # ---- 18. a mainnet Capella epoch transition (phase 14's base taken on
+    # through the two upgrades) ------------------------------------------------
+    cepoch = capella_epoch_phase(torch, cu, card, pks, aepoch.pop("base"), aepoch.pop("small"),
+                                 altair_err)
+    crun = cepoch["runs"]["leaking"]
+    for e in kernels:
+        if e["name"] in EPOCH_PATHS["capella"]["kernels"]:
+            e["capella_epoch_launches"] = crun["launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], crun["err"][e["name"]])
+        if e["name"] in cepoch["ms"]:
+            e["capella_epoch_ms"] = cepoch["ms"][e["name"]]
+
+    lap("phase 18")
+
     # ---- K15-K18 per launch, with their launches on every path ---------------
     paths = {"phase0_block_cold_root": {"merkle_levels": cold_k18["launches"]},
-             "altair_upgrade_and_cold_root": {"merkle_levels": ablock["k18_launches"]}}
-    for tag, phase in (("phase0_epoch", epoch), ("altair_epoch", aepoch)):
+             "altair_upgrade_and_cold_root": {"merkle_levels": ablock["k18_launches"]},
+             "capella_upgrades_and_cold_root": {"merkle_levels": cblock["k18_launches"]}}
+    for tag, phase in (("phase0_epoch", epoch), ("altair_epoch", aepoch),
+                       ("capella_epoch", cepoch)):
         paths[tag] = {k: max(r["launches"][k] for r in phase["runs"].values())
                       for k in MESH_KERNELS + ("merkle_levels",)}
         for k in mesh_err:
@@ -4303,7 +4757,7 @@ def main(argv=None) -> int:
 
     lap("phase 16 (K15-K18 timed)")
 
-    # ---- the hashlib recomputes of phases 6, 10, 13 and 14 ----------------------
+    # ---- the hashlib recomputes of phases 6, 10, 13, 14, 17 and 18 --------------
     hashlib_roots.finish()
 
     lap("hashlib roots (waited for)")

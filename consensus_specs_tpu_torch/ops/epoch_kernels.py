@@ -1,10 +1,10 @@
-"""Vectorized epoch engine for phase0 and Altair: kernels K10
+"""Vectorized epoch engine for phase0 and the Altair family: kernels K10
 ``phase0_deltas``, K11 ``effective_balance``, K12 ``slashings``, K13
 ``altair_deltas`` and K14 ``inactivity_updates`` with their plain
 versions, the engine switch and the ``try_process_*`` orchestrators.
 
 Counterpart of ``consensus_specs_tpu/ops/epoch_kernels.py`` (the phase0
-and Altair paths).  The per-validator epoch loops of ``forks/phase0.py`` are
+and Altair-family paths).  The per-validator epoch loops of ``forks/phase0.py`` are
 O(validators) python passes over SSZ views; this module re-expresses
 them over the state column store (``state/arrays.py``).  Each
 ``try_process_*`` offers its sub-transition to the mesh engine first
@@ -59,10 +59,15 @@ without CUDA; ``"cpu"``: the plain versions, as the tests run),
 kernel that fails to build or launch raises; a guard trip declines to
 the spec loop and is counted in ``stats()``.
 
+Bellatrix and Capella run the Altair path with the constants of their
+fork lineage (:func:`inactivity_penalty_quotient`,
+:func:`slashing_multiplier`): K13 takes Bellatrix's inactivity quotient
+in its ``INACTIVITY_SCORE_BIAS * quotient`` scalar, K12 Bellatrix's
+slashing multiplier in the adjusted total of its parameters.
+
 Not carried: the supervisor, fault sites and sentinel audits, the obs
-registry, ``install_vectorized_epoch`` (the compiled ladder) and the
-forks after Altair (Bellatrix's inactivity quotient and slashing
-multiplier, Deneb's activation churn).
+registry, ``install_vectorized_epoch`` (the compiled ladder) and Deneb's
+activation churn cap.
 """
 import math
 from typing import NamedTuple, Tuple
@@ -566,6 +571,25 @@ def _fork_lineage(spec) -> frozenset:
                      if isinstance(c.__dict__.get("fork"), str))
 
 
+def inactivity_penalty_quotient(spec) -> int:
+    """The Altair-family inactivity penalty quotient of the spec's fork
+    lineage: Bellatrix's from Bellatrix on, else Altair's."""
+    if "bellatrix" in _fork_lineage(spec):
+        return int(spec.INACTIVITY_PENALTY_QUOTIENT_BELLATRIX)
+    return int(spec.INACTIVITY_PENALTY_QUOTIENT_ALTAIR)
+
+
+def slashing_multiplier(spec) -> int:
+    """The proportional slashing multiplier of the spec's fork lineage:
+    Bellatrix's from Bellatrix on, Altair's on Altair, else phase0's."""
+    lineage = _fork_lineage(spec)
+    if "bellatrix" in lineage:
+        return int(spec.PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX)
+    if "altair" in lineage:
+        return int(spec.PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR)
+    return int(spec.PROPORTIONAL_SLASHING_MULTIPLIER)
+
+
 def _masked_sum(eff, mask) -> int:
     """Exact python-int sum of a masked uint64 column."""
     sub = eff[mask]
@@ -780,7 +804,7 @@ def _altair_rewards_and_penalties(spec, state, dev) -> None:
         reward = 0 if in_leak else br_max * w * up_inc // (active_increments * wd)
         _guard(bal_bound + reward)
         bal_bound += reward
-    quotient = int(spec.INACTIVITY_PENALTY_QUOTIENT_ALTAIR)
+    quotient = inactivity_penalty_quotient(spec)
     _guard(max_eff * sa.column_bound("inactivity_scores"))
     s = AltairScalars(increment, brpi, weights, tuple(part_inc), active_increments, wd,
                       in_leak, int(spec.config.INACTIVITY_SCORE_BIAS) * quotient)
@@ -976,12 +1000,10 @@ def _scatter_registry_card(cards, written, cols) -> dict:
 def try_process_slashings(spec, state) -> bool:
     if not enabled():
         return _decline(state)
-    multiplier = (spec.PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR
-                  if "altair" in _fork_lineage(spec)
-                  else spec.PROPORTIONAL_SLASHING_MULTIPLIER)
-    if mesh_epoch.try_slashings(spec, state, int(multiplier)):
+    multiplier = slashing_multiplier(spec)
+    if mesh_epoch.try_slashings(spec, state, multiplier):
         return _mesh_committed()
-    return _run(state, _slashings, spec, state, int(multiplier), engine_device())
+    return _run(state, _slashings, spec, state, multiplier, engine_device())
 
 
 def _slashings(spec, state, multiplier, dev) -> None:

@@ -536,7 +536,7 @@ def _altair_rewards(spec, state, sa, dev) -> bool:
         ek._guard(bal_bound + reward)
         bal_bound += reward
     ek._guard(max_eff * max_score, max_bal + (len(weights) + 1) * br_max)
-    quotient = int(spec.INACTIVITY_PENALTY_QUOTIENT_ALTAIR)
+    quotient = ek.inactivity_penalty_quotient(spec)
     s = ek.AltairScalars(increment, brpi, weights, tuple(part_inc), active_increments, wden,
                          in_leak, int(spec.config.INACTIVITY_SCORE_BIAS) * quotient)
     new = ek.altair_deltas(reg["eff"], bal, scores, part, red.eligible, red.active, s)
