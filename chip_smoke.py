@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, verify a
-mainnet-shaped block, run a mainnet phase0 block through
-``state_transition``, run a block's blobs through the KZG library and
-PeerDAS recovery, run a mainnet phase0 epoch transition, run a mainnet
-Altair block and an Altair epoch transition, run a mainnet Capella block
-(withdrawals and BLS-to-execution changes) and a Capella epoch transition
-(the epochs and the cold and post-epoch roots through the mesh engine),
-time.
+mainnet-shaped block, run a block's blobs through the KZG library and
+PeerDAS recovery, run a mainnet phase0 block through
+``state_transition``, run a mainnet phase0 epoch transition, run a
+mainnet Altair block and an Altair epoch transition, run a mainnet
+Capella block (withdrawals and BLS-to-execution changes) and a Capella
+epoch transition, run a mainnet Deneb block whose six-blob KZG batch
+joins the block's one product pairing and a Deneb epoch transition under
+the activation churn cap (the epochs and the cold and post-epoch roots
+through the mesh engine), time.
 
     python3 chip_smoke.py [--validators N]
     python3 chip_smoke.py --probe [--root DIR] [--only K1,K18,...] [--sweep RUNS]
@@ -67,8 +69,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    off; measure the round-latency probe's ns per round
    (``sha256.sha256_chain``, held against its plain version), which turns
    K5's and K6's chain floors into ms;
-6. a mainnet phase0 block through the port's ``state_transition`` on the
-   card (``build_spec("phase0", "mainnet")``, ``bls.use_torch()``,
+6. (run right after phase 9) a mainnet phase0 block through the port's
+   ``state_transition`` on the card (``build_spec("phase0", "mainnet")``, ``bls.use_torch()``,
    ``sha256.install_merkle_hasher()``): a ``BeaconState`` of 2^20 active
    validators (``--validators``), a block at slot 3 with 128
    attestations (the 64 committees of slots 1 and 2, every bit set, each
@@ -87,7 +89,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    version); set-up, the cold root (K5
    and K18 against hashlib), the transition's stages, K5 per launch and
    the copies are timed;
-7. hold K7 ``expand_windows``, K8 ``g1_msm`` and K9 ``fr_fft``
+7. (run right after phase 15, so that phase 19 finds phase 8's blobs)
+   hold K7 ``expand_windows``, K8 ``g1_msm`` and K9 ``fr_fft``
    byte-identical to their plain versions on the card and to the oracle
    (MSMs at N = 1, 3, 8, 300 with the scalars 0, 1, r - 1, a repeated
    base, P beside -P and the point at infinity; K8 also on skewed digits:
@@ -244,7 +247,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    the flush, the changes' share of the flush (the block's items with and
    without them, in turns) and the transition are timed;
 18. (run right after phase 14) a mainnet Capella epoch transition:
-   phase 14's Altair base through the two upgrades, run once through
+   phase 14's not-leaking Altair registry of 2^18 (a depth cut; the 2^20
+   base goes to phase 20) through the two upgrades, run once through
    ``process_slots`` leaking (its slashed validators' penalties due,
    ``slashings`` at which multipliers 3 and 2 differ) on the mesh engine
    as phase 14 runs (K14, K13, K11, K12 once each, K15 4 times, K17 once,
@@ -254,20 +258,56 @@ Phases, each fatal on failure (no phase's failure is caught):
    K12's adjusted total Bellatrix's multiplier 3 of ``slashings``; K13 and
    K12 are timed per launch; at 4,096 validators the spec loops, the
    columnar engine and the mesh engine give identical roots, leaking and
-   not.
+   not;
+19. (run right after phase 17, on its pre-state) a mainnet Deneb block
+   through the port's ``state_transition`` on the card
+   (``build_spec("deneb", "mainnet")``): phase 17's 2^20-validator
+   Capella pre-state through ``upgrade_to_deneb``, a block at slot 3 with
+   phase 17's content (128 attestations and the sync aggregate signed
+   under the Deneb fork version, its 16 withdrawals, 16 BLS-to-execution
+   changes on lanes phase 17 did not change), phase 8's six blob
+   commitments (``MAX_BLOBS_PER_BLOCK``) and a payload with their blob gas
+   and their blob transaction.  One batch scope holds
+   ``is_data_available`` (``retrieve_blobs_and_proofs`` hands back phase
+   8's blobs and proofs) and ``state_transition``, as Deneb's ``on_block``
+   composes them: the KZG batch defers its two pairs, and the block's
+   147 RLC items and the deferred check pass as one product pairing, one
+   K4 launch of one group of 150 pairs.  The post-state's hashlib root
+   must equal the block's ``state_root``; a recording execution engine
+   must see the six versioned hashes ``0x01 || sha256(commitment)[1:]``
+   and the parent root; with one blob's proof replaced by another's, the
+   flush of the block's items and the deferred check must fail with
+   ``last_results`` all True and ``last_pairing_results == [False]``.
+   Every K1-K5, K7 and K8 call at a shape no earlier phase held and every
+   K18 call of the upgrade and its cold root are held against their plain
+   versions (K4's GT values too); ``is_data_available``, the flush and K4
+   at the new group size are timed;
+20. (run right after phase 18) a mainnet Deneb epoch transition: phase
+   14's 2^20 Altair base through the three upgrades, 32 deposits queued
+   for activation (eligible since epoch 0: the churn limit stays 16), run
+   once through ``process_slots`` leaking on the mesh engine as phase 18
+   runs: exactly the first 8 queued lanes are activated (EIP-7514's
+   ``MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT``; Capella's rule would take
+   16), the engine commits with no decline, no loop and no guard trip,
+   K13 and K12 take Bellatrix's scalars, every K11-K15, K17 and K18 call
+   is held, and the post-state ends at the hashlib root of a fresh
+   deserialization; K13 and K12 are timed per launch; at 4,096
+   validators with ``MIN_PER_EPOCH_CHURN_LIMIT = 16`` and 24 queued the
+   spec loops, the columnar engine and the mesh engine give identical
+   roots and activate the same 8, leaking and not.
 
-The hashlib roots of phases 6, 10, 13, 14, 17 and 18 (a fresh
-deserialization of each 2^20-validator state, hashed without the batched
-hasher) are recomputed in three worker processes while the run goes on;
-the run waits for all of them, and fails on any that differs, before
-phase 16's result lines.
+The hashlib roots of phases 6, 10, 13, 14, 17, 18, 19 and 20 (a fresh
+deserialization of each large state, hashed without the batched hasher)
+are recomputed in three worker processes while the run goes on; the run
+waits for all of them, and fails on any that differs, before phase 16's
+result lines.
 
 Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
 KeyValidate (decompression and subgroup check, ~31 ms of python per key,
 paid once per registry key, not per block) dominates set-up otherwise;
-the 2^20 validators of phases 6, 10, 13, 14, 17 and 18 cycle over those keys.  The
-device work per block does not depend on the number of distinct keys; on
+the 2^20 validators of phases 6, 10, 13, 14, 17, 18, 19 and 20 cycle over
+those keys.  The device work per block does not depend on the number of distinct keys; on
 the host, the cycled keys also keep the spec's linear pubkey search in
 ``process_sync_aggregate`` cheap (every key occurs within the first 1,024
 entries), which is why the port replaces it by one first-occurrence map.
@@ -1613,6 +1653,8 @@ def blob_phase(torch, dev, card, setup, n_blobs=BLOBS) -> dict:
                                           "pairing_check": err4},
             "k7": big7, "k8": big8, "k8_small": small8, "blobs": blobs, "cs": cs,
             "k7_calls": first_by_points(k7, k7_counts), "k4_call": k4.calls[0][0],
+            "proofs": proofs,
+            "held": {(r.name, str(r.shapes(a))) for r in (k7, k8) for a, _ in r.calls},
             "k4_launches": launches["pairing_check"] - before["pairing_check"],
             "commit_ms": commit_ms, "prove_ms": prove_ms, "verify_ms": verify_ms,
             "verify_device_ms": device_ms}
@@ -1760,6 +1802,8 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
                                        "g1_msm": err8, "pairing_check": err4},
             "k9": k9.calls[0][0], "k8_cell": k8_cell, "recover_ms": recover_ms,
             "k7_calls": first_by_points(k7, k7_counts), "k4_call": k4.calls[0][0],
+            "proofs": proofs,
+            "held": {(r.name, str(r.shapes(a))) for r in (k7, k8) for a, _ in r.calls},
             "k4_launches": launches["pairing_check"] - before["pairing_check"],
             "k9_path_ms": k9_ms, "k9_launches": rec_launches["fr_fft"], "k9_batches": batches,
             "proofs_ms": proofs_ms, "vcell_ms": vcell_ms}
@@ -1927,7 +1971,7 @@ EPOCH_PATHS = {
                # balances, inactivity scores, the new current participation
                "k18": lambda n: [-(-n // 4), -(-n // 4), -(-n // 32)]},
 }
-EPOCH_PATHS["capella"] = EPOCH_PATHS["altair"]
+EPOCH_PATHS["capella"] = EPOCH_PATHS["deneb"] = EPOCH_PATHS["altair"]
 
 
 def epoch_plain(ek) -> dict:
@@ -2128,21 +2172,25 @@ def epoch_state(spec, ssz, np, pks, n: int, seed: int):
     return state
 
 
-def leaking(spec, state):
-    """A copy of ``state`` finalized at epoch 0: finality delay 5 > 4, an
-    inactivity leak."""
+def leaking(spec, state, fork=True):
+    """A copy of ``state`` (``state`` itself without ``fork``: a caller
+    that holds it no longer) finalized at epoch 0: finality delay 5 > 4,
+    an inactivity leak."""
     from consensus_specs_tpu_torch.state import arrays as state_arrays
-    out = state_arrays.fork_state(state)
+    out = state_arrays.fork_state(state) if fork else state
     out.finalized_checkpoint = spec.Checkpoint(epoch=0, root=state.block_roots[0])
     return out
 
 
-def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
-    """One epoch transition of a copy of ``base`` through ``process_slots``
+def epoch_run(torch, dev, card, spec, base, tag: str, inspect=None, fork=True) -> dict:
+    """One epoch transition of a copy of ``base`` (``base`` itself without
+    ``fork``: a caller that holds it no longer) through ``process_slots``
     on the card, every epoch-kernel call recorded (K10-K12 on phase0,
     K14, K13, K11 and K12 on Altair; K15-K17 and the commit's K18 on the
     mesh path) and held against its plain version; the post-state root on
-    K5 and K18 against the hashlib root of a fresh deserialization."""
+    K5 and K18 against the hashlib root of a fresh deserialization.
+    ``inspect(post_state)``: its result is kept as ``inspected`` (the
+    post-state itself is not kept)."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     from consensus_specs_tpu_torch.parallel import mesh_epoch as me
@@ -2152,7 +2200,7 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
     from consensus_specs_tpu_torch.utils.ssz import merkle
 
     t0 = time.perf_counter()
-    state = state_arrays.fork_state(base)
+    state = state_arrays.fork_state(base) if fork else base
     t_copy = time.perf_counter() - t0
     in_leak = bool(spec.is_in_inactivity_leak(state))
     path = EPOCH_PATHS[spec.fork]
@@ -2256,18 +2304,20 @@ def epoch_run(torch, dev, card, spec, base, tag: str) -> dict:
           f"fork {t_copy:.2f} s; every call of {list(kernels) + list(MESH_KERNELS)} and K18 held "
           f"against its plain version")
     sub_ms = {n: split[n] for n in subs}
+    inspected = inspect(state) if inspect is not None else None
     return {"launches": launches, "err": err, "calls": {r.name: r.calls for r in recorders},
             "kwargs": {r.name: r.kwargs for r in recorders}, "mesh_stats": mesh_stats,
             "slots_ms": t_slots, "epoch_ms": ms["process_epoch"], "sub_ms": sub_ms,
             "kernel_ms": kernel_ms, "copy_ms": copy_ms, "root_ms": t_root,
-            "in_leak": in_leak}
+            "in_leak": in_leak, "inspected": inspected}
 
 
-def reduced_epoch_leg(torch, dev, spec, base, n: int) -> None:
+def reduced_epoch_leg(torch, dev, spec, base, n: int, post=None) -> None:
     """The same construction at ``n`` validators (``base``): the port's
     spec loops, its columnar engine (below the mesh floor) and its mesh
     engine (``use_mesh``) on the card give identical post-state roots, not
-    leaking and leaking."""
+    leaking and leaking.  ``post(pre, post_state)`` checks each run's
+    post-state further."""
     from consensus_specs_tpu_torch.ops import epoch_kernels as ek
     from consensus_specs_tpu_torch.parallel import mesh_epoch as me
     from consensus_specs_tpu_torch.parallel import mesh_state
@@ -2295,6 +2345,8 @@ def reduced_epoch_leg(torch, dev, spec, base, n: int) -> None:
             check((me.stats()["commits"] == subs) == (engine == "mesh"),
                   f"reduced leg ({engine}): mesh engine counters {me.stats()}")
             roots[engine] = bytes(ssz.hash_tree_root(s))
+            if post is not None:
+                post(pre, s)
         check(roots["loops"] == roots["vectorized"] == roots["mesh"],
               f"reduced leg: loops, the columnar engine and the mesh engine differ at {n} "
               f"validators")
@@ -2640,18 +2692,22 @@ def proposer_signer(spec, dry, sks, proposer):
     return signed
 
 
-def card_transition(torch, spec, state, signed_block, stages) -> dict:
+def card_transition(torch, spec, state, signed_block, stages, within=None, copy=True) -> dict:
     """``state_transition`` of a copy of ``state`` on the card in a batch
     scope of its own, the verify memo cleared, every K1-K4 call and the
     first K5 call of every row count recorded, the ``stages`` (spec
-    methods), the flush and the G2 decompression timed.  Returns the
+    methods), the flush and the G2 decompression timed.  ``within``: a
+    call made in the same scope before the transition (Deneb's data
+    availability check, as ``on_block`` composes the two); without
+    ``copy``, ``state`` itself is transitioned (a caller that holds it no
+    longer).  Returns the
     post-state, the batch, the launches, the recorders, the stage ms and
     the total ms."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import bls_torch, sha256
     from consensus_specs_tpu_torch.utils import bls
     clock = StageClock()
-    post = state.copy()
+    post = state.copy() if copy else state
     for name in stages:
         clock.wrap(spec, name)
     clock.wrap(bls.DeferredBatch, "flush")
@@ -2666,6 +2722,8 @@ def card_transition(torch, spec, state, signed_block, stages) -> dict:
     t0 = time.perf_counter()
     try:
         with bls.scoped_batch(bls.DeferredBatch()) as batch:
+            if within is not None:
+                within()
             spec.state_transition(post, signed_block)
         torch.cuda.synchronize()
     finally:
@@ -2678,14 +2736,16 @@ def card_transition(torch, spec, state, signed_block, stages) -> dict:
 
 
 def hold_new_shapes(torch, recorders, held: set, tag: str) -> dict:
-    """Hold the recorded K1-K5 calls against their plain versions (K4's
-    GT values too), but for those at a (kernel, argument shapes) that
-    phase 4 held (``held``); returns {kernel: largest word difference}."""
-    from consensus_specs_tpu_torch.ops import sha256
+    """Hold the recorded K1-K5 (and K7, K8) calls against their plain
+    versions (K4's GT values too), but for those at a (kernel, argument
+    shapes) that an earlier phase held (``held``); returns {kernel: largest
+    word difference}."""
+    from consensus_specs_tpu_torch.ops import msm, sha256
     from consensus_specs_tpu_torch.ops.torch_bls import htc, pairing, points
     plain = {"g1_aggregate_scale": points.g1_aggregate_scale_plain,
              "g2_scale_sum": points.g2_scale_sum_plain, "hash_to_g2": htc.hash_to_g2_plain,
-             "pairing_check": k4_gt_plain(torch, pairing), "hash64": sha256.hash64_plain}
+             "pairing_check": k4_gt_plain(torch, pairing), "hash64": sha256.hash64_plain,
+             "expand_windows": msm.expand_windows_plain, "msm_core": msm.msm_core_plain}
     skipped = {}
     for r in recorders:
         keep = [i for i, (a, _) in enumerate(r.calls) if (r.name, str(r.shapes(a))) not in held]
@@ -2693,10 +2753,10 @@ def hold_new_shapes(torch, recorders, held: set, tag: str) -> dict:
         r.calls = [r.calls[i] for i in keep]
         r.kwargs = [r.kwargs[i] for i in keep]
     err = {r.name: r.hold(plain[r.name]) for r in recorders}
-    print(f"{tag}: every K1-K4 call of the transition (K4's GT values too) at a shape phase 4 "
-          f"did not hold, and the first K5 call of every row count, held against their plain "
-          f"versions ({ {r.name: r.count for r in recorders} } calls; at phase 4's shapes, "
-          f"held there: {skipped})")
+    print(f"{tag}: every call of {[r.name for r in recorders]} (K5: the first of every row "
+          f"count; K4's GT values too) at a shape no earlier phase held, held against its plain "
+          f"version ({ {r.name: r.count for r in recorders} } calls; at shapes held before: "
+          f"{skipped})")
     return err
 
 
@@ -2869,7 +2929,6 @@ def altair_epoch_phase(torch, dev, card, pks, pre, quiet_pre, err: int) -> dict:
               f"{time.perf_counter() - t0:.2f} s")
     bls.bls_active = False              # epoch processing verifies no signature
     runs = {"not_leaking": epoch_run(torch, dev, card, spec, quiet, "altair not leaking")}
-    del quiet
     runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "altair leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two altair runs must be one not leaking and one leaking")
@@ -2879,9 +2938,11 @@ def altair_epoch_phase(torch, dev, card, pks, pre, quiet_pre, err: int) -> dict:
     bls.bls_active = False
     reduced_epoch_leg(torch, dev, spec, small, n)
     bls.bls_active = True
-    # phase 18 upgrades the untouched base and the reduced leg's state to Capella
+    # phase 18 upgrades the not-leaking registry (a depth cut) and the reduced
+    # leg's state to Capella, phase 20 the untouched base and the reduced
+    # leg's state to Deneb
     return {"runs": runs, "err": err, "extract_ms": t_extract, "cold_s": t_cold,
-            "build_s": t_build, "base": base, "small": small}
+            "build_s": t_build, "base": base, "quiet": quiet, "small": small}
 
 
 # ---------------------------------------------------------------------------
@@ -2938,6 +2999,36 @@ def capella_lanes(n: int, keys: int) -> tuple:
     return withdrawn, changed
 
 
+def block_payload(spec, dry, withdrawals, transactions=(), **fields):
+    """The execution payload of the Capella-family blocks of phases 17 and
+    19 on ``dry`` (the pre-state at ``BLOCK_SLOT``): seeded block fields,
+    three seeded transactions and ``transactions``, ``withdrawals``, and
+    ``fields`` (a later fork's)."""
+    head = dry.latest_execution_payload_header
+    return spec.ExecutionPayload(
+        parent_hash=head.block_hash, fee_recipient=seeded_bytes(b"fee", 20),
+        state_root=seeded_bytes(b"el state 3", 32), receipts_root=seeded_bytes(b"receipts", 32),
+        prev_randao=spec.get_randao_mix(dry, spec.get_current_epoch(dry)),
+        block_number=head.block_number + 1, gas_limit=head.gas_limit, gas_used=63_000,
+        timestamp=spec.compute_timestamp_at_slot(dry, dry.slot), extra_data=b"chip-smoke",
+        base_fee_per_gas=head.base_fee_per_gas, block_hash=seeded_bytes(b"el block 3", 32),
+        transactions=[b"\x02" + seeded_bytes(b"tx" + bytes([k]), 32) * 3 for k in range(3)]
+        + list(transactions), withdrawals=withdrawals, **fields)
+
+
+def signed_changes(spec, domain, sks, pks, lanes) -> list:
+    """A ``SignedBLSToExecutionChange`` of each lane in ``lanes``, from
+    its own registry key to a seeded address."""
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    changes = []
+    for k, v in enumerate(lanes):
+        msg = spec.BLSToExecutionChange(validator_index=v, from_bls_pubkey=pks[v % len(pks)],
+                                        to_execution_address=seeded_bytes(b"to" + bytes([k]), 20))
+        changes.append(spec.SignedBLSToExecutionChange(message=msg, signature=O.Sign(
+            sks[v % len(sks)], spec.compute_signing_root(msg, domain))))
+    return changes
+
+
 def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     """Phase 17: a mainnet Capella block through ``state_transition`` on
     ``dev``: phase 13's Altair pre-state (2^20 validators) through
@@ -2951,7 +3042,6 @@ def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     and the randao reveal (147 RLC items).  ``held`` as in phase 13."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import bls_torch
-    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
     from consensus_specs_tpu_torch.parallel import mesh_merkle
     from consensus_specs_tpu_torch.utils import bls, ssz
     from consensus_specs_tpu_torch.utils.hash_function import hash as sha
@@ -3003,25 +3093,11 @@ def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
           and [int(w.amount) for w in expected] == [1_000_003 * (k + 1)
                                                      for k in range(WITHDRAWALS)],
           f"capella: expected withdrawals {[(int(w.validator_index), int(w.amount)) for w in expected]}")
-    head = dry.latest_execution_payload_header
-    payload = spec.ExecutionPayload(
-        parent_hash=head.block_hash, fee_recipient=seeded_bytes(b"fee", 20),
-        state_root=seeded_bytes(b"el state 3", 32), receipts_root=seeded_bytes(b"receipts", 32),
-        prev_randao=spec.get_randao_mix(dry, spec.get_current_epoch(dry)),
-        block_number=head.block_number + 1, gas_limit=head.gas_limit, gas_used=63_000,
-        timestamp=spec.compute_timestamp_at_slot(dry, dry.slot), extra_data=b"chip-smoke",
-        base_fee_per_gas=head.base_fee_per_gas, block_hash=seeded_bytes(b"el block 3", 32),
-        transactions=[b"\x02" + seeded_bytes(b"tx" + bytes([k]), 32) * 3 for k in range(3)],
-        withdrawals=expected)
+    payload = block_payload(spec, dry, expected)
     change_domain = spec.compute_domain(spec.DOMAIN_BLS_TO_EXECUTION_CHANGE,
                                         genesis_validators_root=dry.genesis_validators_root)
     t0 = time.perf_counter()
-    changes = []
-    for k, v in enumerate(changed):
-        msg = spec.BLSToExecutionChange(validator_index=v, from_bls_pubkey=pks[v % len(pks)],
-                                        to_execution_address=seeded_bytes(b"to" + bytes([k]), 20))
-        changes.append(spec.SignedBLSToExecutionChange(message=msg, signature=O.Sign(
-            sks[v % len(sks)], spec.compute_signing_root(msg, change_domain))))
+    changes = signed_changes(spec, change_domain, sks, pks, changed)
     t_changes = time.perf_counter() - t0
     block = spec.BeaconBlock(
         slot=BLOCK_SLOT, proposer_index=proposer,
@@ -3102,6 +3178,7 @@ def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
                          post, bytes(block.state_root))
     del post, tr["post"]
     err = hold_new_shapes(torch, tr["recorders"], held, "capella")
+    held_here = {(r.name, str(r.shapes(a))) for r in tr["recorders"] for a, _ in r.calls}
     # K1-K4 at the Capella flush's shapes, per call queued ahead
     flush_calls = {r.name: r.calls[0][0] for r in tr["recorders"][:len(KERNELS)] if r.calls}
     shapes = {name: {"shapes": [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)],
@@ -3140,13 +3217,61 @@ def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
             "transition_ms": t_total, "upgrade_s": t_up, "k18_launches": cold_launches,
             "k18_err": k18_err, "withdrawals_ms": ms["process_withdrawals"],
             "flush_ms": ms["flush"], "changes_share_ms": share, "shapes": shapes,
-            "k4_call": flush_calls.get("pairing_check")}
+            "k4_call": flush_calls.get("pairing_check"), "held": held_here, "state": state,
+            "changed": changed}
 
 
-def capella_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
-    """Phase 18: a Capella epoch transition of phase 14's Altair base (2^20
-    validators, its slashed validators' penalties due and ``slashings``
-    large enough that multiplier 3 and 2 give different penalties) through
+def bellatrix_scalars(spec, run, slashed_sum: int, tag: str) -> dict:
+    """C.1 and C.2 from the launch arguments K13 and K12 received in
+    ``run``: K13's inactivity scalar must be ``INACTIVITY_SCORE_BIAS *
+    INACTIVITY_PENALTY_QUOTIENT_BELLATRIX`` and K12's adjusted total
+    Bellatrix's multiplier 3 of ``slashed_sum``, at which multipliers 3
+    and 2 give different penalties."""
+    s = run["calls"]["altair_deltas"][0][0][6]
+    quotient = int(spec.config.INACTIVITY_SCORE_BIAS) * int(spec.INACTIVITY_PENALTY_QUOTIENT_BELLATRIX)
+    check(s.inactivity_denominator == quotient,
+          f"{tag}: K13's inactivity scalar {s.inactivity_denominator}, expected {quotient}")
+    args = run["calls"]["slashings"][0][0]
+    inc, adjusted, total = (int(x) for x in args[3:6])
+    check(adjusted == min(slashed_sum * 3, total),
+          f"{tag}: K12's adjusted total {adjusted}: not multiplier 3 of {slashed_sum} "
+          f"(total {total})")
+    max_eb = int(spec.MAX_EFFECTIVE_BALANCE)
+    penalty = lambda m: max_eb // inc * min(slashed_sum * m, total) // total * inc  # noqa: E731
+    targets = int(args[2].sum())
+    check(penalty(3) != penalty(2) and targets > 0,
+          f"{tag}: multipliers 3 and 2 must differ on the run's targets: {penalty(3)}, "
+          f"{penalty(2)}")
+    print(f"{tag}: K13 took the inactivity scalar {s.inactivity_denominator} = "
+          f"INACTIVITY_SCORE_BIAS x INACTIVITY_PENALTY_QUOTIENT_BELLATRIX (Altair's would be "
+          f"{3 * quotient}); K12 the adjusted total {adjusted} = min(3 x {slashed_sum}, {total}): "
+          f"{targets} target lanes lose {penalty(3)} gwei at 32 ETH ({penalty(2)} at Altair's "
+          f"multiplier 2)")
+    return {"inactivity_scalar": s.inactivity_denominator, "adjusted_total": adjusted}
+
+
+def time_k13_k12(torch, card, ek, run, tag: str) -> dict:
+    """K13 and K12 per launch queued ahead at ``run``'s calls, beside their
+    bounds and plain versions."""
+    plain = epoch_plain(ek)
+    times = {}
+    for name in ("altair_deltas", "slashings"):
+        a = run["calls"][name][0][0]
+        fn = getattr(ek, name)
+        times[name] = queued_ms(torch, lambda: fn(*a))
+        nbytes, ops = epoch_bound_counts(ek, name, a, True)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+        print(f"time {name} at the {tag} epoch's call ({a[0].numel()} lanes): "
+              f"{times[name]:.4f} ms per launch queued ahead (bound {bound:.5f} ms; plain on the "
+              f"card {plain_ms(torch, lambda: plain[name](*a)):.3f} ms) on {card}")
+    return times
+
+
+def capella_epoch_phase(torch, dev, card, pks, quiet, small, err: int) -> dict:
+    """Phase 18: a Capella epoch transition of phase 14's not-leaking
+    Altair registry (``quiet``: 2^18 validators, a depth cut; its slashed
+    validators' penalties due and ``slashings`` large enough that
+    multiplier 3 and 2 give different penalties) through
     ``upgrade_to_bellatrix`` and ``upgrade_to_capella``, run once through
     ``process_slots`` leaking; from K13's and K12's recorded launch
     arguments, the Bellatrix inactivity quotient and slashing multiplier;
@@ -3159,8 +3284,8 @@ def capella_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
     from consensus_specs_tpu_torch.utils.ssz import merkle
 
     sha256.install_merkle_hasher(dev)
-    spec, state, t_up = to_capella(base)
-    del base
+    spec, state, t_up = to_capella(quiet)
+    del quiet
     merkle.reset_stats()
     t0 = time.perf_counter()
     cold = bytes(ssz.hash_tree_root(state))
@@ -3168,49 +3293,363 @@ def capella_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
     t_cold = time.perf_counter() - t0
     st = merkle.stats()
     slashed_sum = sum(int(x) for x in state.slashings)
-    print(f"capella epoch state: {len(state.validators)} validators at slot {EPOCH_SLOT}; "
-          f"upgrade_to_bellatrix {t_up[0]:.2f} s, upgrade_to_capella {t_up[1]:.2f} s (host); "
-          f"cold root {t_cold:.3f} s ({cold.hex()[:16]}; pairs by K5 {st['pairs_batched']}, by "
-          f"hashlib {st['pairs_hashlib']}); slashings {slashed_sum} gwei on {card}")
+    print(f"capella epoch state: {len(state.validators)} validators at slot {EPOCH_SLOT} (phase "
+          f"14's not-leaking registry, a depth cut); upgrade_to_bellatrix {t_up[0]:.2f} s, "
+          f"upgrade_to_capella {t_up[1]:.2f} s (host); cold root {t_cold:.3f} s "
+          f"({cold.hex()[:16]}; pairs by K5 {st['pairs_batched']}, by hashlib "
+          f"{st['pairs_hashlib']}); slashings {slashed_sum} gwei on {card}")
     bls.bls_active = False              # epoch processing verifies no signature
-    run = epoch_run(torch, dev, card, spec, leaking(spec, state), "capella leaking")
+    run = epoch_run(torch, dev, card, spec, leaking(spec, state, fork=False), "capella leaking",
+                    fork=False)
     check(run["in_leak"], "the capella run must leak")
     del state
-    # C.1 and C.2, from the launch arguments K13 and K12 received
-    s = run["calls"]["altair_deltas"][0][0][6]
-    quotient = int(spec.config.INACTIVITY_SCORE_BIAS) * int(spec.INACTIVITY_PENALTY_QUOTIENT_BELLATRIX)
-    check(s.inactivity_denominator == quotient,
-          f"K13's inactivity scalar {s.inactivity_denominator}, expected {quotient}")
-    args = run["calls"]["slashings"][0][0]
-    inc, adjusted, total = (int(x) for x in args[3:6])
-    check(adjusted == min(slashed_sum * 3, total),
-          f"K12's adjusted total {adjusted}: not multiplier 3 of {slashed_sum} (total {total})")
-    max_eb = int(spec.MAX_EFFECTIVE_BALANCE)
-    penalty = lambda m: max_eb // inc * min(slashed_sum * m, total) // total * inc  # noqa: E731
-    targets = int(args[2].sum())
-    check(penalty(3) != penalty(2) and targets > 0,
-          f"multipliers 3 and 2 must differ on the run's targets: {penalty(3)}, {penalty(2)}")
-    print(f"capella epoch: K13 took the inactivity scalar {s.inactivity_denominator} = "
-          f"INACTIVITY_SCORE_BIAS x INACTIVITY_PENALTY_QUOTIENT_BELLATRIX (Altair's would be "
-          f"{3 * quotient}); K12 the adjusted total {adjusted} = min(3 x {slashed_sum}, {total}): "
-          f"{targets} target lanes lose {penalty(3)} gwei at 32 ETH ({penalty(2)} at Altair's "
-          f"multiplier 2)")
-    plain = epoch_plain(ek)
-    times = {}
-    for name in ("altair_deltas", "slashings"):
-        a = run["calls"][name][0][0]
-        fn = getattr(ek, name)
-        times[name] = queued_ms(torch, lambda: fn(*a))
-        nbytes, ops = epoch_bound_counts(ek, name, a, True)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-        print(f"time {name} at the capella epoch's call ({a[0].numel()} lanes): "
-              f"{times[name]:.4f} ms per launch queued ahead (bound {bound:.5f} ms; plain on the "
-              f"card {plain_ms(torch, lambda: plain[name](*a)):.3f} ms) on {card}")
+    scalars = bellatrix_scalars(spec, run, slashed_sum, "capella epoch")
+    times = time_k13_k12(torch, card, ek, run, "capella")
     _, small, _ = to_capella(small)
     reduced_epoch_leg(torch, dev, spec, small, len(small.validators))
     bls.bls_active = True
     return {"runs": {"leaking": run}, "err": err, "cold_s": t_cold, "upgrade_s": t_up,
-            "ms": times}
+            "ms": times, "scalars": scalars}
+
+
+# ---------------------------------------------------------------------------
+# slice 15: the Deneb runtime (a mainnet block whose six-blob KZG batch joins
+# the block's one product pairing, a Deneb epoch under the activation churn cap)
+# ---------------------------------------------------------------------------
+
+GAS_PER_BLOB = 2**17            # EIP-4844
+PENDING = 32                    # validators queued for activation in phase 20
+REDUCED_PENDING = 24            # and in its reduced leg
+# the reduced leg's config: churn 16 at 4,096 validators, so the cap (8) binds
+REDUCED_CHURN = {"MIN_PER_EPOCH_CHURN_LIMIT": 16}
+
+
+class RecordingEngine:
+    """An execution engine that accepts every payload and keeps what it
+    was sent."""
+
+    def __init__(self):
+        self.requests = []
+
+    def verify_and_notify_new_payload(self, request) -> bool:
+        self.requests.append(request)
+        return True
+
+
+def deneb_lanes(n: int, keys: int) -> list:
+    """The lanes that send a BLS-to-execution change in phase 19: none of
+    phase 17's, and none it withdraws from (:func:`capella_lanes`)."""
+    withdrawn, changed = capella_lanes(n, keys)
+    lanes = [n - 50 - 97 * k for k in range(CHANGES)]
+    check(not set(lanes) & (set(withdrawn) | set(changed)) and min(lanes) > 0,
+          f"deneb lanes at {n} validators")
+    return lanes
+
+
+def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) -> dict:
+    """Phase 19: a mainnet Deneb block through ``state_transition`` on
+    ``dev``: phase 17's Capella pre-state (2^20 validators, its 16 partial
+    withdrawals due) through ``upgrade_to_deneb``; a block at slot 3 with
+    phase 17's content (128 attestations and the sync aggregate signed
+    under the Deneb fork version, the 16 withdrawals, 16 BLS-to-execution
+    changes on lanes phase 17 did not change), phase 8's six blob
+    commitments and a payload with their blob gas and their blob
+    transaction.  ``is_data_available`` (its ``retrieve_blobs_and_proofs``
+    hands back phase 8's blobs and proofs) and ``state_transition`` share
+    one batch scope, as ``on_block`` composes them: the KZG batch's two
+    pairs join the block's 147 RLC items in one product pairing (one K4
+    launch).  ``blob``: phase 8's result; ``held``: (kernel, argument
+    shapes) held before."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import bls_torch, msm
+    from consensus_specs_tpu_torch.parallel import mesh_merkle
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.hash_function import hash as sha
+
+    spec = build_spec("deneb", "mainnet")
+    n = len(pre.validators)
+    withdrawn, _ = capella_lanes(n, len(pks))
+    changed = deneb_lanes(n, len(pks))
+    blobs, cs, proofs = blob["blobs"], blob["cs"], blob["proofs"]
+    _build.reset_launches()
+    with CallRecorder(torch, mesh_merkle, "merkle_levels") as spans:
+        t0 = time.perf_counter()
+        state = spec.upgrade_to_deneb(pre)
+        t_up = time.perf_counter() - t0
+        del pre
+        t0 = time.perf_counter()
+        cold = bytes(ssz.hash_tree_root(state))
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+    cold_launches = _build.launches["merkle_levels"]
+    # the span build: the registry's tree, built again in the new state
+    k18_check("deneb: the upgrade and the cold root", spans.calls, cold_launches, [n])
+    k18_err = spans.hold(mesh_merkle.merkle_levels_plain)
+    for v in changed:
+        check(bytes(state.validators[v].withdrawal_credentials)
+              == spec.BLS_WITHDRAWAL_PREFIX + sha(pks[v % len(pks)])[1:],
+              f"deneb: validator {v} lacks its own key's 0x00 credentials")
+    print(f"deneb: upgrade_to_deneb {t_up:.2f} s of phase 17's {n}-validator Capella "
+          f"pre-state (host); cold root {t_cold:.3f} s on K5 ({cold.hex()[:16]}); K18 "
+          f"{cold_launches} launches in {spans.count} span builds at leaves "
+          f"{sorted(a[0].shape[0] for a, _ in spans.calls)}, each held against its plain "
+          f"version on {card}")
+
+    dry = state.copy()
+    spec.process_slots(dry, BLOCK_SLOT)
+    proposer = int(spec.get_beacon_proposer_index(dry))
+    parts = signed_body(spec, dry, sks, pks, proposer)
+    atts = parts["atts"]
+    expected = spec.get_expected_withdrawals(dry)
+    check([int(w.validator_index) for w in expected] == withdrawn,
+          f"deneb: expected withdrawals at {[int(w.validator_index) for w in expected]}")
+    hashes = [bytes(spec.kzg_commitment_to_versioned_hash(c)) for c in cs]
+    payload = block_payload(spec, dry, expected, transactions=[b"\x03" + b"".join(hashes)],
+                            blob_gas_used=len(cs) * GAS_PER_BLOB, excess_blob_gas=0)
+    change_domain = spec.compute_domain(spec.DOMAIN_BLS_TO_EXECUTION_CHANGE,
+                                        genesis_validators_root=dry.genesis_validators_root)
+    t0 = time.perf_counter()
+    changes = signed_changes(spec, change_domain, sks, pks, changed)
+    t_changes = time.perf_counter() - t0
+    block = spec.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=ssz.hash_tree_root(dry.latest_block_header),
+        body=spec.BeaconBlockBody(randao_reveal=parts["randao"], eth1_data=dry.eth1_data,
+                                  attestations=atts, sync_aggregate=parts["sync"],
+                                  execution_payload=payload, bls_to_execution_changes=changes,
+                                  blob_kzg_commitments=cs))
+    items = len(atts) + 3 + CHANGES
+    print(f"deneb block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations, a "
+          f"sync aggregate of {sum(parts['bits'])} of {SYNC} members, {len(expected)} "
+          f"withdrawals, {CHANGES} BLS-to-execution changes, {len(cs)} blob commitments "
+          f"(MAX_BLOBS_PER_BLOCK {int(spec.MAX_BLOBS_PER_BLOCK)}; phase 8's blobs), {items} RLC "
+          f"items and one deferred KZG check; set-up: committees {parts['comm_s']:.2f} s, "
+          f"signing {parts['sign_s']:.2f} s, the changes {t_changes:.2f} s (host)")
+    signed = proposer_signer(spec, dry, sks, proposer)
+    bls.bls_active = False
+    t0 = time.perf_counter()
+    spec.process_block(dry, block.copy())
+    block.state_root = ssz.hash_tree_root(dry)
+    bls.bls_active = True
+    del dry
+    print(f"deneb dry run on a copy: process_block + root {time.perf_counter() - t0:.2f} s")
+
+    # -- is_data_available and the transition in one scope on the card ------------
+    engine, noop = RecordingEngine(), spec.EXECUTION_ENGINE
+    spec.EXECUTION_ENGINE = engine
+    spec.retrieve_blobs_and_proofs = lambda root: (blobs, proofs)
+    root = ssz.hash_tree_root(block)
+    avail = {}
+
+    def availability():
+        clock = StageClock(sync=torch.cuda.synchronize)
+        for name in ("expand_windows", "msm_core"):
+            clock.wrap(msm, name)
+        t0 = time.perf_counter()
+        try:
+            avail["ok"] = spec.is_data_available(root, block.body.blob_kzg_commitments)
+        finally:
+            clock.restore()
+        avail["ms"] = (time.perf_counter() - t0) * 1e3
+        avail["device_ms"] = sum(clock.ms.values())
+
+    queued, add = [], bls.DeferredBatch.add
+
+    def keep(self, pubkeys, message, signature, memo_key=None):
+        queued.append((pubkeys, message, signature))
+        return add(self, pubkeys, message, signature, memo_key)
+    bls.DeferredBatch.add = keep
+    try:
+        with CallRecorder(torch, msm, "expand_windows") as k7, \
+                CallRecorder(torch, msm, "msm_core") as k8:
+            tr = card_transition(torch, spec, state, signed(block.copy()),
+                                 ("process_slots", "process_block", "process_execution_payload",
+                                  "process_attestation"), within=availability, copy=False)
+    finally:
+        bls.DeferredBatch.add = add
+    batch, launches, ms, t_total = tr["batch"], tr["launches"], tr["ms"], tr["total_ms"]
+    post = tr["post"]
+    path_kernels = KERNELS + ("hash64", "expand_windows", "g1_msm")
+    k4_args = tr["recorders"][KERNELS.index("pairing_check")].calls[0][0]
+    check(avail["ok"] is True, "deneb: is_data_available must answer True inside the scope")
+    check(batch.pairings == 1 and launches["pairing_check"] == 1,
+          f"deneb: expected one product pairing and one K4 launch for the block and its blobs, "
+          f"got {batch.pairings} pairings, {launches['pairing_check']} K4 launches")
+    check(batch.last_results == [True] * items and batch.last_pairing_results == [True],
+          f"deneb: last_results must be {items} x True and last_pairing_results [True]")
+    check(k4_args[0].shape[0] == items + 1 + 2,
+          f"deneb: K4's group holds {k4_args[0].shape[0]} pairs, expected {items + 3}")
+    check(all(launches[k] > 0 for k in path_kernels),
+          f"deneb: a kernel of the block's path was not launched: {launches}")
+    check(len(engine.requests) == 1, f"deneb: {len(engine.requests)} payloads sent to the engine")
+    request = engine.requests[0]
+    want_hashes = [b"\x01" + hashlib.sha256(bytes(c)).digest()[1:] for c in cs]
+    check([bytes(h) for h in request.versioned_hashes] == want_hashes,
+          "deneb: the engine's versioned hashes differ from 0x01 || sha256(commitment)[1:]")
+    check(bytes(request.parent_beacon_block_root) == bytes(block.parent_root),
+          "deneb: the engine's parent beacon block root")
+    check(int(post.latest_execution_payload_header.blob_gas_used) == len(cs) * GAS_PER_BLOB
+          and int(post.next_withdrawal_index) == WITHDRAWALS
+          and int(post.next_withdrawal_validator_index) == withdrawn[-1] + 1,
+          "deneb: the post-state's payload header or withdrawal cursors")
+    rest = ms["process_block"] - sum(ms[k] for k in (
+        "process_execution_payload", "process_attestation", "flush"))
+    print(f"deneb: is_data_available and state_transition in one scope passed with "
+          f"{batch.pairings} product pairing: {len(batch.last_results)} items and "
+          f"{len(batch.last_pairing_results)} deferred check (kzg_batch) in one K4 group of "
+          f"{k4_args[0].shape[0]} pairs; the engine saw {len(request.versioned_hashes)} versioned "
+          f"hashes equal to 0x01 || sha256(commitment)[1:] and the parent root; launches "
+          f"{ {k: launches[k] for k in path_kernels} }")
+    print(f"time deneb is_data_available (6 blobs, deferred): {avail['ms']:.2f} ms = device "
+          f"(K7 and K8 wrappers, synchronized) {avail['device_ms']:.2f} + host "
+          f"{avail['ms'] - avail['device_ms']:.2f} on {card}")
+    print(f"time deneb state_transition (validate_result=True): {t_total - avail['ms']:.2f} ms = "
+          f"slots {ms['process_slots']:.2f} + process_execution_payload "
+          f"{ms['process_execution_payload']:.2f} + process_attestation x{len(atts)} "
+          f"{ms['process_attestation']:.2f} + flush {ms['flush']:.2f} (_decompress_g2 "
+          f"{ms['_decompress_g2']:.2f}; {items} items and the KZG check) + rest of "
+          f"process_block {rest:.2f} + state-root check and block signature "
+          f"{t_total - avail['ms'] - ms['process_slots'] - ms['process_block']:.2f} on {card}")
+    hashlib_roots.submit("the Deneb block's post-state (the block's state_root)", spec, ssz,
+                         post, bytes(block.state_root))
+    del post, tr["post"], state
+    # every launched shape, before the holds drop the calls at shapes held before
+    shapes = {r.name: sorted(r.by_shape) for r in tr["recorders"][:len(KERNELS)] + [k7, k8]}
+    err = hold_new_shapes(torch, tr["recorders"] + [k7, k8], held, "deneb")
+    k4_ms = queued_ms(torch, lambda: bls_torch.pairing_check(*k4_args), 5)
+    print(f"time pairing_check at the deneb flush's group ({k4_args[0].shape[0]} pairs): "
+          f"{k4_ms:.3f} ms per call queued ahead on {card}")
+
+    # -- one blob's proof replaced by another's: the flush of the block's items
+    # and the deferred check fails, and the bisect names the check alone --------
+    check(len(queued) == items, f"deneb: {len(queued)} items queued, expected {items}")
+    bad = list(proofs)
+    bad[2] = proofs[3]
+    spec.retrieve_blobs_and_proofs = lambda root: (blobs, bad)
+    bls.clear_verify_memo()
+    with bls.scoped_batch(bls.DeferredBatch()) as b:
+        check(spec.is_data_available(root, block.body.blob_kzg_commitments) is True,
+              "deneb: a deferred check answers True in the scope")
+        for it in queued:
+            b.add(*it)
+        ok = b.flush()
+    check(ok is False and b.last_results == [True] * items and b.last_pairing_results == [False],
+          f"deneb: a wrong blob proof not named alone: {ok}, "
+          f"{[i for i, r in enumerate(b.last_results or []) if not r]}, "
+          f"{b.last_pairing_results}")
+    print(f"deneb: blob 2's proof replaced by blob 3's: the flush fails, last_results {items} x "
+          f"True, last_pairing_results {b.last_pairing_results} (the KZG check named alone; "
+          f"{b.pairings} pairing evaluations with the bisect)")
+    del spec.retrieve_blobs_and_proofs
+    spec.EXECUTION_ENGINE = noop
+    return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
+            "shapes": shapes, "transition_ms": t_total - avail["ms"], "available_ms": avail["ms"],
+            "available_device_ms": avail["device_ms"], "upgrade_s": t_up,
+            "k18_launches": cold_launches, "k18_err": k18_err, "flush_ms": ms["flush"],
+            "k4_call": k4_args, "k4_ms": k4_ms}
+
+
+def add_pending(spec, state, pks, count: int) -> list:
+    """``count`` deposits of 32 ETH appended to the registry through the
+    spec's ``add_validator_to_registry`` (keys cycled, ``0x00`` credentials
+    from their own keys), each eligible for activation since epoch 0:
+    validators waiting in the activation queue.  Returns their lanes."""
+    from consensus_specs_tpu_torch.utils.hash_function import hash as sha
+    n = len(state.validators)
+    for i in range(n, n + count):
+        pk = pks[i % len(pks)]
+        spec.add_validator_to_registry(state, pk, spec.BLS_WITHDRAWAL_PREFIX + sha(pk)[1:],
+                                       spec.MAX_EFFECTIVE_BALANCE)
+        state.validators[i].activation_eligibility_epoch = 0
+    return list(range(n, n + count))
+
+
+def activated(spec, lanes, cap: int):
+    """A check of a post-state: exactly the first ``cap`` of ``lanes``
+    (all eligible since epoch 0: the queue's order is the index) got an
+    activation epoch, the next epoch past the seed lookahead."""
+    def look(post):
+        epochs = [int(post.validators[i].activation_epoch) for i in lanes]
+        want = int(spec.compute_activation_exit_epoch(EPOCH_SLOT // 32))
+        check(epochs[:cap] == [want] * cap and all(e == int(spec.FAR_FUTURE_EPOCH)
+                                                    for e in epochs[cap:]),
+              f"deneb: activation epochs of the queued lanes {epochs}")
+        return [i for i, e in zip(lanes, epochs) if e == want]
+    return look
+
+
+def deneb_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
+    """Phase 20: a Deneb epoch transition of phase 14's Altair base (2^20
+    validators, its slashed validators' penalties due) through
+    ``upgrade_to_bellatrix``, ``upgrade_to_capella`` and
+    ``upgrade_to_deneb``, with 32 deposits queued for activation (eligible
+    since epoch 0, so the churn limit stays 2^20 // 65536 = 16), run once
+    through ``process_slots`` leaking on the mesh engine: exactly the first
+    8 queued lanes are activated (EIP-7514's cap; Capella's rule would
+    take 16), K13 and K12 take Bellatrix's scalars, every call is held,
+    and the post-state ends at the hashlib root of a fresh
+    deserialization.  The reduced leg at 4,096 validators (``small``:
+    phase 14's) runs under ``MIN_PER_EPOCH_CHURN_LIMIT = 16`` with 24
+    queued, so the cap binds there too.  ``err``: phase 12's largest
+    K13/K14 word difference."""
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import epoch_kernels as ek
+    from consensus_specs_tpu_torch.ops import sha256
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    from consensus_specs_tpu_torch.utils.ssz import merkle
+
+    sha256.install_merkle_hasher(dev)
+    spec = build_spec("deneb", "mainnet")
+    _, mid, t_up = to_capella(base)
+    del base
+    t0 = time.perf_counter()
+    state = spec.upgrade_to_deneb(mid)
+    t_up = t_up + (time.perf_counter() - t0,)
+    del mid
+    lanes = add_pending(spec, state, pks, PENDING)
+    merkle.reset_stats()
+    t0 = time.perf_counter()
+    cold = bytes(ssz.hash_tree_root(state))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    st = merkle.stats()
+    slashed_sum = sum(int(x) for x in state.slashings)
+    pre = leaking(spec, state, fork=False)
+    del state
+    churn = int(spec.get_validator_churn_limit(pre))
+    eligible = sum(bool(spec.is_eligible_for_activation(pre, pre.validators[i])) for i in lanes)
+    cap = int(spec.get_validator_activation_churn_limit(pre))
+    check(eligible == PENDING and cap == min(int(spec.MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT), churn)
+          and (len(pre.validators) - PENDING < 2**20 or (churn, cap) == (16, 8)),
+          f"deneb epoch: churn {churn}, {eligible} eligible, activation churn {cap}")
+    print(f"deneb epoch state: {len(pre.validators)} validators at slot {EPOCH_SLOT} "
+          f"({len(pre.validators) - PENDING} active, {PENDING} queued for activation); "
+          f"upgrade_to_bellatrix {t_up[0]:.2f} s, upgrade_to_capella {t_up[1]:.2f} s, "
+          f"upgrade_to_deneb {t_up[2]:.2f} s (host); cold root {t_cold:.3f} s "
+          f"({cold.hex()[:16]}; pairs by K5 {st['pairs_batched']}, by hashlib "
+          f"{st['pairs_hashlib']}); slashings {slashed_sum} gwei; churn limit {churn}: "
+          f"Capella's rule would activate {min(churn, eligible)} of the {eligible} eligible, "
+          f"Deneb's activation churn limit {cap} on {card}")
+    bls.bls_active = False              # epoch processing verifies no signature
+    run = epoch_run(torch, dev, card, spec, pre, "deneb leaking",
+                    inspect=activated(spec, lanes, cap), fork=False)
+    check(run["in_leak"], "the deneb run must leak")
+    del pre
+    print(f"deneb epoch: activated lanes {run['inspected']} of the {PENDING} queued "
+          f"({lanes[0]}..{lanes[-1]}): the first {cap} by (eligibility epoch, index)")
+    scalars = bellatrix_scalars(spec, run, slashed_sum, "deneb epoch")
+    times = time_k13_k12(torch, card, ek, run, "deneb")
+    ospec = build_spec("deneb", "mainnet", REDUCED_CHURN)
+    _, small, _ = to_capella(small)
+    small = ospec.upgrade_to_deneb(small)
+    queued = add_pending(ospec, small, pks, REDUCED_PENDING)
+    reduced_epoch_leg(torch, dev, ospec, small, len(small.validators),
+                      post=lambda pre, s: activated(ospec, queued, 8)(s))
+    bls.bls_active = True
+    return {"runs": {"leaking": run}, "err": err, "cold_s": t_cold, "upgrade_s": t_up,
+            "ms": times, "scalars": scalars, "activated": run["inspected"],
+            "capella_rule": min(churn, eligible)}
 
 
 # ---------------------------------------------------------------------------
@@ -4268,7 +4707,8 @@ def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--validators", type=int, default=VALIDATORS,
-                    help="active validators of the phase0, Altair and Capella states (default 2^20)")
+                    help="active validators of the phase0, Altair, Capella and Deneb states "
+                         "(default 2^20)")
     ap.add_argument("--probe", action="store_true",
                     help="time the kernels through their wrappers instead of the phases")
     ap.add_argument("--root", default=None,
@@ -4620,6 +5060,26 @@ def main(argv=None) -> int:
 
     lap("phase 15")
 
+    # ---- 7. K7, K8 and K9 against their plain versions and the oracle --------
+    err = slice3_kernel_checks(torch, cu)
+
+    lap("phase 7")
+
+    # ---- 8. a block's blobs through the KZG library ----------------------------
+    from consensus_specs_tpu_torch.ops import kzg
+    setup = kzg.trusted_setup("mainnet")
+    blob = blob_phase(torch, cu, card, setup)
+
+    lap("phase 8")
+
+    # ---- 9. PeerDAS recovery and sampling ---------------------------------------
+    das = peerdas_phase(torch, cu, card, setup, blob["blobs"], blob["cs"])
+    for k in err:
+        err[k] = max(err[k], blob["err"].get(k, 0), das["err"].get(k, 0))
+    s3_launches = {k: blob["launches"][k] + das["launches"][k] for k in blob["launches"]}
+
+    lap("phase 9")
+
     # ---- 6. a mainnet phase0 block through state_transition -----------------
     k5, block_launches, phase0_state, cold_k18, bls_err = phase0_block(
         torch, cu, card, sks, pks, opts.validators)
@@ -4666,23 +5126,21 @@ def main(argv=None) -> int:
 
     lap("phase 17")
 
-    # ---- 7. K7, K8 and K9 against their plain versions and the oracle --------
-    err = slice3_kernel_checks(torch, cu)
+    # ---- 19. a mainnet Deneb block with six blobs (phase 17's pre-state taken
+    # on through upgrade_to_deneb, phase 8's blobs) -----------------------------
+    dblock = deneb_block_phase(torch, cu, card, sks, pks, cblock.pop("state"), blob,
+                               held | cblock["held"] | blob["held"])
+    for e in kernels:
+        if e["name"] in dblock["launches"]:
+            e["deneb_block_launches"] = dblock["launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], dblock["err"][e["name"]])
+        if e["name"] in dblock["shapes"]:
+            e["deneb_block_shapes"] = dblock["shapes"][e["name"]]
+    mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], dblock["k18_err"])
 
-    lap("phase 7")
+    lap("phase 19")
 
-    # ---- 8. a block's blobs through the KZG library ----------------------------
-    from consensus_specs_tpu_torch.ops import kzg
-    setup = kzg.trusted_setup("mainnet")
-    blob = blob_phase(torch, cu, card, setup)
-
-    lap("phase 8")
-
-    # ---- 9. PeerDAS recovery and sampling ---------------------------------------
-    das = peerdas_phase(torch, cu, card, setup, blob["blobs"], blob["cs"])
-    for k in err:
-        err[k] = max(err[k], blob["err"].get(k, 0), das["err"].get(k, 0))
-    s3_launches = {k: blob["launches"][k] + das["launches"][k] for k in blob["launches"]}
+    # ---- K4 at every path's shape; K7-K9 per launch ------------------------------
     k4 = next(e for e in kernels if e["name"] == "pairing_check")
     k4["max_abs_err"] = max(k4["max_abs_err"], blob["err"]["pairing_check"],
                             das["err"]["pairing_check"])
@@ -4693,10 +5151,18 @@ def main(argv=None) -> int:
                            lane_launches["pairing_check"]),
         "blob batch verify": (blob["k4_call"], blob["k4_launches"]),
         "cell batch verify": (das["k4_call"], das["k4_launches"]),
-        "capella block flush": (cblock["k4_call"], cblock["launches"]["pairing_check"])})
+        "capella block flush": (cblock["k4_call"], cblock["launches"]["pairing_check"]),
+        "deneb block flush": (dblock["k4_call"], dblock["launches"]["pairing_check"])})
+    k4["deneb_block_ms"] = dblock["k4_ms"]
     kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
+    for e in kernels:
+        if e["name"] in ("expand_windows", "g1_msm"):
+            rec = "expand_windows" if e["name"] == "expand_windows" else "msm_core"
+            e["deneb_block_launches"] = dblock["launches"][e["name"]]
+            e["deneb_block_shapes"] = dblock["shapes"][rec]
+            e["max_abs_err"] = max(e["max_abs_err"], dblock["err"][rec])
 
-    lap("phase 9")
+    lap("K4 shapes, K7-K9 timed")
 
     # ---- 10. a mainnet phase0 epoch transition ----------------------------------
     epoch = epoch_phase(torch, cu, card, pks, opts.validators)
@@ -4726,26 +5192,35 @@ def main(argv=None) -> int:
 
     lap("phase 14")
 
-    # ---- 18. a mainnet Capella epoch transition (phase 14's base taken on
-    # through the two upgrades) ------------------------------------------------
-    cepoch = capella_epoch_phase(torch, cu, card, pks, aepoch.pop("base"), aepoch.pop("small"),
-                                 altair_err)
-    crun = cepoch["runs"]["leaking"]
-    for e in kernels:
-        if e["name"] in EPOCH_PATHS["capella"]["kernels"]:
-            e["capella_epoch_launches"] = crun["launches"][e["name"]]
-            e["max_abs_err"] = max(e["max_abs_err"], crun["err"][e["name"]])
-        if e["name"] in cepoch["ms"]:
-            e["capella_epoch_ms"] = cepoch["ms"][e["name"]]
+    # ---- 18. a mainnet Capella epoch transition (phase 14's not-leaking
+    # registry of 2^18 taken on through the two upgrades: a depth cut) ----------
+    small = aepoch.pop("small")
+    cepoch = capella_epoch_phase(torch, cu, card, pks, aepoch.pop("quiet"), small, altair_err)
 
     lap("phase 18")
+
+    # ---- 20. a mainnet Deneb epoch transition (phase 14's 2^20 base taken on
+    # through the three upgrades, 32 deposits queued for activation) ------------
+    depoch = deneb_epoch_phase(torch, cu, card, pks, aepoch.pop("base"), small, altair_err)
+    del small
+    for tag, phase in (("capella", cepoch), ("deneb", depoch)):
+        run = phase["runs"]["leaking"]
+        for e in kernels:
+            if e["name"] in EPOCH_PATHS[tag]["kernels"]:
+                e[f"{tag}_epoch_launches"] = run["launches"][e["name"]]
+                e["max_abs_err"] = max(e["max_abs_err"], run["err"][e["name"]])
+            if e["name"] in phase["ms"]:
+                e[f"{tag}_epoch_ms"] = phase["ms"][e["name"]]
+
+    lap("phase 20")
 
     # ---- K15-K18 per launch, with their launches on every path ---------------
     paths = {"phase0_block_cold_root": {"merkle_levels": cold_k18["launches"]},
              "altair_upgrade_and_cold_root": {"merkle_levels": ablock["k18_launches"]},
-             "capella_upgrades_and_cold_root": {"merkle_levels": cblock["k18_launches"]}}
+             "capella_upgrades_and_cold_root": {"merkle_levels": cblock["k18_launches"]},
+             "deneb_upgrade_and_cold_root": {"merkle_levels": dblock["k18_launches"]}}
     for tag, phase in (("phase0_epoch", epoch), ("altair_epoch", aepoch),
-                       ("capella_epoch", cepoch)):
+                       ("capella_epoch", cepoch), ("deneb_epoch", depoch)):
         paths[tag] = {k: max(r["launches"][k] for r in phase["runs"].values())
                       for k in MESH_KERNELS + ("merkle_levels",)}
         for k in mesh_err:
@@ -4757,7 +5232,7 @@ def main(argv=None) -> int:
 
     lap("phase 16 (K15-K18 timed)")
 
-    # ---- the hashlib recomputes of phases 6, 10, 13, 14, 17 and 18 --------------
+    # ---- the hashlib recomputes of phases 6, 10, 13, 14, 17, 18, 19 and 20 ------
     hashlib_roots.finish()
 
     lap("hashlib roots (waited for)")

@@ -19,9 +19,10 @@ cell of the batch into ONE product pairing check of two pairs:
 * ``RLP`` re-weights the proofs by ``l_k * s_k``.
 
 Under the torch backend the three MSMs and the proof fold run on K7/K8
-and the pairing is one K4 group (``ops/kzg.py``); it is evaluated at
-once, as the port carries no deferral of raw pairing checks into a
-block's batch.
+and the pairing is one K4 group (``ops/kzg.py``).  Inside a block's
+batch scope the two pairs are deferred into its one product pairing
+(``bls.defer_pairing_check``, label ``das_cells``) and the call answers
+True; outside a scope the pairing is evaluated at once.
 
 Recovery - blobs missing the SAME cell set (the withheld-column shape:
 every blob of a block loses identical columns) share the vanishing
@@ -192,10 +193,13 @@ def verify_cell_proof_batch(row_commitments_bytes, row_ids, column_ids,
                  for lam, col in zip(lambdas, column_ids)])
 
     rhs = K._g1_of(rlc) + (-K._g1_of(rli)) + K._g1_of(rlp)
-    return K._pairing_check([
+    pairs = [
         (K._g1_of(proof_lincomb), t.tau_ell_g2),
         (-rhs, G2_GENERATOR),
-    ])
+    ]
+    if _bls.defer_pairing_check(pairs, label="das_cells"):
+        return True
+    return K._pairing_check(pairs)
 
 
 # ---------------------------------------------------------------------------

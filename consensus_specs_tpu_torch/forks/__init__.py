@@ -3,11 +3,11 @@
 Counterpart of ``consensus_specs_tpu/forks/__init__.py``.  Each fork is a
 class extending the previous fork's class; ``build_spec(fork, preset)``
 instantiates a fork spec bound to a preset and config, cached per
-(fork, preset, overrides).  The port carries phase0, Altair, Bellatrix
-and Capella.  ``register_fork`` installs the batched attestation message
-preparation (``ops/att_prep.py``) on every fork class; the JAX package's
-tracing and DAS installs and its markdown-compiled ladder are not
-carried.
+(fork, preset, overrides).  The port carries phase0, Altair, Bellatrix,
+Capella and Deneb.  ``register_fork`` installs the batched attestation
+message preparation (``ops/att_prep.py``) on every fork class; the JAX
+package's tracing and DAS installs and its markdown-compiled ladder are
+not carried.
 """
 from typing import Dict, Optional, Tuple
 
@@ -26,7 +26,7 @@ def register_fork(name):
 
 def fork_registry() -> Dict[str, type]:
     if not _REGISTRY:
-        from . import phase0, altair, bellatrix, capella  # noqa: F401
+        from . import phase0, altair, bellatrix, capella, deneb  # noqa: F401
     return dict(_REGISTRY)
 
 

@@ -18,7 +18,7 @@ Epoch processing goes through the port's engine first, as on Altair:
 Bellatrix inactivity quotient and K12 the Bellatrix slashing multiplier.
 The merge-block checks are plain methods: fork choice is not carried.
 """
-from dataclasses import dataclass
+from dataclasses import field, make_dataclass
 from typing import Optional
 
 from ..utils.ssz import (
@@ -30,6 +30,11 @@ from . import register_fork
 from .altair import AltairSpec, PROPOSER_WEIGHT, TIMELY_TARGET_FLAG_INDEX, WEIGHT_DENOMINATOR
 from .optimistic_sync import OptimisticSyncMixin
 from .base_types import Epoch, Gwei, ValidatorIndex, Hash32, ExecutionAddress
+
+
+# the default of every field a fork's ``NewPayloadRequest`` may carry
+_REQUEST_DEFAULTS = {"execution_payload": None, "versioned_hashes": (),
+                     "parent_beacon_block_root": b"\x00" * 32}
 
 
 @register_fork("bellatrix")
@@ -102,10 +107,16 @@ class BellatrixSpec(OptimisticSyncMixin, AltairSpec):
 
     # -- execution engine (protocol + noop stub) -----------------------------
 
+    def _new_payload_request_fields(self):
+        """The fields of ``NewPayloadRequest`` (beacon-chain.md:236); a
+        later fork adds its own (Deneb: the versioned hashes and the parent
+        beacon block root)."""
+        return ("execution_payload",)
+
     def _build_engine(self):
-        @dataclass
-        class NewPayloadRequest:
-            execution_payload: object = None
+        NewPayloadRequest = make_dataclass("NewPayloadRequest", [
+            (name, object, field(default=_REQUEST_DEFAULTS[name]))
+            for name in self._new_payload_request_fields()])
 
         class NoopExecutionEngine:
             """Every payload is valid (``pysetup/spec_builders/bellatrix.py:40-65``)."""

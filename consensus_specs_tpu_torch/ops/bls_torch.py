@@ -225,32 +225,46 @@ def aggregate_verify_batch(items, device=None) -> list:
     return results
 
 
-def rlc_combined_check(pk_rows, msgs, sig_pts, scalars, device=None) -> bool:
+def rlc_combined_check(pk_rows, msgs, sig_pts, scalars, device=None, extra_pairs=()) -> bool:
     """ONE product pairing for a whole flushed batch (bls_jax.py:521):
 
-        prod_i e([r_i] agg_pk_i, H(m_i)) * e(-G1, sum_i [r_i] sig_i) == 1
+        prod_i e([r_i] agg_pk_i, H(m_i)) * e(-G1, sum_i [r_i] sig_i)
+              * prod_j e(P_j, Q_j) == 1
 
     ``pk_rows``: per item, the packed pubkey word rows (already
     KeyValidate-checked); ``msgs``: message bytes; ``sig_pts``: subgroup-
-    checked oracle G2Points; ``scalars``: the 128-bit coefficients.
+    checked oracle G2Points; ``scalars``: the 128-bit coefficients;
+    ``extra_pairs``: oracle (G1Point, G2Point) pairs appended to the
+    product (the deferred raw pairing checks, already scaled), each with
+    its degenerate flag where a point is at infinity (bls_jax.py:587).
     Device work: K1 (aggregate + scale), K2 (signature MSM), K3, and one
-    K4 group of n + 1 pairs."""
+    K4 group of n + 1 + len(extra_pairs) pairs; with no items, the one
+    K4 group of the extra pairs alone."""
     n = len(pk_rows)
     if not (n == len(msgs) == len(sig_pts) and len(scalars) >= n):
         raise ValueError("rlc_combined_check: ragged inputs")
-    if n == 0:
+    if n == 0 and not extra_pairs:
         return True
     dev = _build.device(device)
-    sc = _scalar_words(scalars[:n], dev)
-    pk, counts = _stack_pk_rows(pk_rows, dev)
-    aggp, agg_inf = g1_aggregate_scale(pk, counts, sc)
-    sig, sig_inf = _pack_g2(sig_pts, dev)
-    s_aff, s_inf = g2_scale_sum(sig, sig_inf, sc)
-    hm, hm_inf = hash_to_g2(_to(hash_to_field_host(msgs), dev))
-    p = torch.cat([aggp, _neg_g1(1, dev)])
-    q = torch.cat([hm, s_aff[None]])
-    degen = torch.cat([agg_inf | hm_inf, s_inf.reshape(1)])
-    offsets = torch.tensor([0, n + 1], dtype=torch.int32)
+    p_parts, q_parts, d_parts = [], [], []
+    if n:
+        sc = _scalar_words(scalars[:n], dev)
+        pk, counts = _stack_pk_rows(pk_rows, dev)
+        aggp, agg_inf = g1_aggregate_scale(pk, counts, sc)
+        sig, sig_inf = _pack_g2(sig_pts, dev)
+        s_aff, s_inf = g2_scale_sum(sig, sig_inf, sc)
+        hm, hm_inf = hash_to_g2(_to(hash_to_field_host(msgs), dev))
+        p_parts += [aggp, _neg_g1(1, dev)]
+        q_parts += [hm, s_aff[None]]
+        d_parts += [agg_inf | hm_inf, s_inf.reshape(1)]
+    if extra_pairs:
+        ep, ep_inf = pack_g1([a for a, _ in extra_pairs])
+        eq, eq_inf = pack_g2([b for _, b in extra_pairs])
+        p_parts.append(_to(ep, dev))
+        q_parts.append(_to(eq, dev))
+        d_parts.append(_to(ep_inf | eq_inf, dev))
+    p, q, degen = torch.cat(p_parts), torch.cat(q_parts), torch.cat(d_parts)
+    offsets = torch.tensor([0, p.shape[0]], dtype=torch.int32)
     return bool(pairing_check(p, q, degen, offsets).cpu()[0])
 
 

@@ -63,11 +63,12 @@ Bellatrix and Capella run the Altair path with the constants of their
 fork lineage (:func:`inactivity_penalty_quotient`,
 :func:`slashing_multiplier`): K13 takes Bellatrix's inactivity quotient
 in its ``INACTIVITY_SCORE_BIAS * quotient`` scalar, K12 Bellatrix's
-slashing multiplier in the adjusted total of its parameters.
+slashing multiplier in the adjusted total of its parameters.  From
+Deneb on, the registry updates dequeue activations up to
+``MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT`` (EIP-7514) and no further.
 
 Not carried: the supervisor, fault sites and sentinel audits, the obs
-registry, ``install_vectorized_epoch`` (the compiled ladder) and Deneb's
-activation churn cap.
+registry and ``install_vectorized_epoch`` (the compiled ladder).
 """
 import math
 from typing import NamedTuple, Tuple
@@ -956,11 +957,14 @@ def _registry_apply_idx(spec, state, sa, cols, queue_idx, eject_idx, eligible_id
         written["ext"] = written["wd"] = np.array(exits, dtype=np.int64)
 
     # activations: eligibles sorted by (activation_eligibility_epoch,
-    # index), dequeued up to the churn limit
+    # index), dequeued up to the fork's activation churn limit
     idx = eligible_idx
     if idx.size:
         aee = cols["aee"]
-        take = idx[np.lexsort((idx, aee[idx]))][:churn].tolist()
+        activation_churn = churn
+        if "deneb" in _fork_lineage(spec):
+            activation_churn = min(int(spec.MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT), churn)
+        take = idx[np.lexsort((idx, aee[idx]))][:activation_churn].tolist()
         if take:
             activation_epoch = current_epoch + 1 + int(spec.MAX_SEED_LOOKAHEAD)
             act = writable("act")["act"]

@@ -17,10 +17,16 @@ JAX package's does:
 What differs from the JAX package: it hands MSMs under 256 points and
 every pairing to a native C library, which the port does not have; the
 fixed-basis window cache is keyed by the basis's content, not by
-``id(setup)``; ``_g2_combine`` (only the single-proof
-``verify_kzg_proof_impl`` uses it) stays on the oracle; and the batch
-pairing is evaluated eagerly, since the port carries no deferral of raw
-pairing checks into a block's batch (``defer_pairing_check``).
+``id(setup)``; and ``_g2_combine`` (only the single-proof
+``verify_kzg_proof_impl`` uses it) stays on the oracle.
+
+Inside a block's batch scope (``utils/bls.batched_verification``, or
+``scoped_batch`` around ``is_data_available`` and ``state_transition``
+as Deneb's ``on_block`` composes them), ``verify_kzg_proof_batch``
+defers its final two pairs into the block's batch
+(``bls.defer_pairing_check``, label ``kzg_batch``) and answers True: the
+block's one product pairing folds them in, and a failing flush names the
+check alone.  Outside a scope the pairing is evaluated at once.
 """
 import hashlib
 import json
@@ -398,7 +404,8 @@ def verify_kzg_proof_impl(commitment: bytes, z: int, y: int, proof: bytes,
 def verify_kzg_proof_batch(commitments, zs, ys, proofs,
                            setup: TrustedSetup) -> bool:
     """md:404 - random linear combination -> 2 MSMs + 1 pairing check,
-    evaluated at once (no batch scope defers it in the port)."""
+    deferred into the block's batch inside a scope, else evaluated at
+    once."""
     assert len(commitments) == len(zs) == len(ys) == len(proofs)
     width = setup.FIELD_ELEMENTS_PER_BLOB
 
@@ -422,10 +429,14 @@ def verify_kzg_proof_batch(commitments, zs, ys, proofs,
         for commitment, y in zip(commitments, ys)]
     C_minus_y_lincomb = g1_lincomb(C_minus_ys, r_powers)
 
-    return _pairing_check([
+    pairs = [
         (_g1_of(proof_lincomb), -setup.g2_tau),
         (_g1_of(C_minus_y_lincomb) + _g1_of(proof_z_lincomb), G2_GENERATOR),
-    ])
+    ]
+    # assert-style inside a batch scope: the block's flush folds the pairs
+    if _bls.defer_pairing_check(pairs, label="kzg_batch"):
+        return True
+    return _pairing_check(pairs)
 
 
 def compute_kzg_proof(blob: bytes, z_bytes: bytes,

@@ -17,12 +17,20 @@ the scope's ``DeferredBatch`` and return True, and the caller's
 (``ops/bls_rlc.py``); when the combined check fails, or an item is
 structurally invalid, it bisects through the per-lane batch verify so
 ``last_results`` names exactly the failing items, as
-``utils/bls.py:207-294`` of the JAX package does.  ``pairings`` counts
-pairing-check evaluations, so a run can show one product pairing per
-block.  Verdicts are memoized by their byte inputs (cleared on a backend
-switch).  The JAX package's supervisor, fault sites, observability
-counters and deferred raw pairing checks are host machinery this port
-does not carry.
+``utils/bls.py:207-294`` of the JAX package does.
+
+Raw pairing-product checks join the same flush: inside a scope,
+``defer_pairing_check(pairs, label)`` queues ``prod e(P_i, Q_i) == 1``
+(the blob-KZG batch, the DAS cell batch) and answers True; the flush
+folds each check's pairs in with a scalar of its own, and on a failure
+evaluates every deferred check alone, so ``last_pairing_results`` names
+the failing checks.  Outside a scope it answers False and the caller
+evaluates the check at once.  ``pairings`` counts pairing-check
+evaluations, so a run can show one product pairing per block.  Verdicts
+are memoized by their byte inputs (cleared on a backend switch).  The
+JAX package's supervisor, fault sites, observability counters and its
+``CS_TPU_BLS_RLC`` switch (the port always folds) are host machinery
+this port does not carry.
 """
 from contextlib import contextmanager
 
@@ -96,13 +104,16 @@ def clear_verify_memo() -> None:
 
 
 class DeferredBatch:
-    """Signature-verification triples collected under one block."""
+    """Signature-verification triples (and deferred raw pairing-product
+    checks, e.g. the blob-KZG batch) collected under one block."""
 
     def __init__(self):
         self.items = []            # (pubkeys, message, signature)
         self.item_keys = []        # per item: memo keys to record at flush
+        self.pairing_checks = []   # (pairs, label): raw product checks
         self._seen = {}            # triple -> index (in-batch dedup)
         self.last_results = None
+        self.last_pairing_results = None
         self.pairings = 0          # pairing-check evaluations so far
 
     def add(self, pubkeys, message, signature, memo_key=None):
@@ -121,8 +132,16 @@ class DeferredBatch:
         self.items.append(item)
         self.item_keys.append([memo_key])
 
+    def add_pairing_check(self, pairs, label=""):
+        """Defer a raw product-pairing check ``prod e(P_i, Q_i) == 1``
+        (oracle point pairs): it folds into the flush with a scalar of its
+        own and is evaluated alone on the bisect path."""
+        self.pairing_checks.append(([(p, q) for p, q in pairs], str(label)))
+
     @staticmethod
     def _lane_results(items) -> list:
+        if not items:
+            return []
         if _backend_name == "torch":
             return _backend.verify_aggregates_batch(items, device=_device)
         return [_backend.FastAggregateVerify(pks, msg, sig) for pks, msg, sig in items]
@@ -134,27 +153,34 @@ class DeferredBatch:
         self.last_results = results
 
     def flush(self) -> bool:
-        items, keys = self.items, self.item_keys
-        self.items, self.item_keys, self._seen = [], [], {}
-        if not items:
+        items, keys, checks = self.items, self.item_keys, self.pairing_checks
+        self.items, self.item_keys, self.pairing_checks, self._seen = [], [], [], {}
+        if not items and not checks:
             return True
-        verdict = bls_rlc.combined_check(items, _backend_name, _device)
+        verdict = bls_rlc.combined_check(items, checks, _backend_name, _device)
         if verdict is not None:
             self.pairings += 1     # the one combined product pairing
         if verdict is True:
             self._record(keys, [True] * len(items))
+            self.last_pairing_results = [True] * len(checks)
             return True
         # combined failure or a structurally invalid item: bisect through
-        # the per-lane path for exact per-item results
+        # the per-lane path, and evaluate each deferred check alone, for
+        # exact per-item and per-check results
+        from ..ops.kzg import _pairing_check
         results = [bool(r) for r in self._lane_results(items)]
-        self.pairings += len(items)
+        pairing_results = [bool(_pairing_check(pairs)) for pairs, _ in checks]
+        self.pairings += len(items) + len(checks)
         self._record(keys, results)
-        return all(results)
+        self.last_pairing_results = pairing_results
+        return all(results) and all(pairing_results)
 
     def assert_valid(self):
         if not self.flush():
-            failed = [i for i, r in enumerate(self.last_results) if not r]
-            raise AssertionError(f"batched signature verification failed (items {failed})")
+            failed = [i for i, r in enumerate(self.last_results or []) if not r]
+            failed_checks = [i for i, r in enumerate(self.last_pairing_results or []) if not r]
+            raise AssertionError("batched signature verification failed "
+                                 f"(items {failed}, deferred checks {failed_checks})")
 
 
 _batch_stack = []
@@ -195,6 +221,18 @@ def scoped_batch(batch):
     finally:
         popped = _batch_stack.pop()
         assert popped is batch
+
+
+def defer_pairing_check(pairs, label="") -> bool:
+    """Queue a raw product-pairing check ``prod e(P_i, Q_i) == 1`` (oracle
+    point pairs) into the active batch scope, to fold into the block's one
+    product pairing; True once queued.  False when no scope is open: the
+    caller then evaluates the check at once.  Deferred checks are
+    assert-style, as every deferred verification is."""
+    if not _batch_stack:
+        return False
+    _batch_stack[-1].add_pairing_check(pairs, label)
+    return True
 
 
 def _verify_or_queue(fn, pks, msg, sig, eager) -> bool:

@@ -111,11 +111,11 @@ def seeded_payload(jspec, state, seed):
 
 @pytest.mark.parametrize("preset", ["minimal", "mainnet"])
 def test_presets_and_specs(specs, preset):
-    """The port loads the four forks' preset files: every key equals the
-    JAX package's, the phase0 and Altair keys keep their values, and
-    Bellatrix and Capella specs build."""
+    """The port loads the preset files of the forks it carries: every key
+    equals the JAX package's, the phase0 and Altair keys keep their
+    values, and Bellatrix and Capella specs build."""
     port = loader.load_preset(preset)
-    want = jax_load_preset(preset, forks=["phase0", "altair", "bellatrix", "capella"])
+    want = jax_load_preset(preset, forks=list(loader.FORKS))
     assert port == want
     old = jax_load_preset(preset, forks=["phase0", "altair"])
     assert {k: port[k] for k in old} == old
