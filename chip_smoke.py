@@ -7,8 +7,10 @@ mainnet Altair block and an Altair epoch transition, run a mainnet
 Capella block (withdrawals and BLS-to-execution changes) and a Capella
 epoch transition, run a mainnet Deneb block whose six-blob KZG batch
 joins the block's one product pairing and a Deneb epoch transition under
-the activation churn cap (the epochs and the cold and post-epoch roots
-through the mesh engine), time.
+the activation churn cap, run a mainnet EIP-7594 block whose six blobs
+are sampled by cell, each blob's cell batch joining the block's one
+product pairing (the epochs and the cold and post-epoch roots through
+the mesh engine), time.
 
     python3 chip_smoke.py [--validators N]
     python3 chip_smoke.py --probe [--root DIR] [--only K1,K18,...] [--sweep RUNS]
@@ -28,7 +30,13 @@ its stage launches), K17 at 2^20 lanes over 1, 2 and 4 spans beside
 (``epoch``: K13 leaking and not, K16's fill alone, its scatter and its
 entries in lane order), K5 and K6 (``sha``: K6 at 256, 4,224 and 67,584
 messages of 1, 5 and 17 blocks, and the round-latency probe's ns per
-round with K5's and K6's chain floors in ms), through the wrappers
+round with K5's and K6's chain floors in ms), and EIP-7594 at full
+width (``eip7594``: one blob's 128 cell proofs through
+``compute_cells_and_proofs``, split into host polynomial work and
+``g1_lincomb``; ``recover_cells_and_kzg_proofs`` from a seeded half; the
+128 sidecars of a one-blob block through
+``verify_data_column_sidecar_kzg_proofs``; ``upgrade_to_eip7594`` of a
+2^20-validator Deneb state and its cold root), through the wrappers
 alone, so that it measures any tree of the port: ``--root`` names a checkout of it
 inside this one (an unpacked parent commit; default: this checkout).
 With ``--sweep RUNS`` it then times the columnar engine against the mesh
@@ -169,21 +177,22 @@ Phases, each fatal on failure (no phase's failure is caught):
    reward), the current sync committee's aggregate with a seeded ~1/16 of
    its 512 bits off, the proposer signature and the randao reveal - 131
    RLC items.  It must pass with one product pairing, the post-state's
-   hashlib root must equal the block's ``state_root``, a forged
-   sync-aggregate signature must be named alone and a wrong
-   ``state_root`` must raise; every K1-K4 call at a shape phase 4 did not
+   hashlib root must equal the block's ``state_root`` and a forged
+   sync-aggregate signature must be named alone (phase 6 holds the
+   wrong-``state_root`` rejection); every K1-K4 call at a shape phase 4 did not
    hold and the first K5 call of every row count are held against their
    plain versions, and so is
    every K18 call of the upgrade and its cold root (the new inactivity
    and participation lists go through the span build); the upgrade,
    ``process_attestation``, ``process_sync_aggregate`` and the flush are
    timed;
-14. a mainnet Altair epoch transition: phase 10's untouched base state
-   through ``upgrade_to_altair`` (``translate_participation`` turns its
-   2048 pending attestations into the previous epoch's flags), seeded
-   inactivity scores (some at the scale of a long leak) and current-epoch
-   flags, run through ``process_slots`` once leaking; the not-leaking run
-   takes phase 10's not-leaking registry of 2^18, upgraded the same way.
+14. a mainnet Altair epoch transition: phase 10's not-leaking registry
+   of 2^18 (a depth cut) through ``upgrade_to_altair``
+   (``translate_participation`` turns its pending attestations into the
+   previous epoch's flags), seeded inactivity scores (some at the scale
+   of a long leak) and current-epoch flags, run through ``process_slots``
+   once leaking and once not; phase 10's untouched 2^20 base is upgraded
+   the same way and hashed for phase 20.
    Each run launches K14, K13, K11 and K12 once, commits 5
    sub-transitions on the engine with no loop run and no guard trip,
    moves balances, effective balances and inactivity scores once each
@@ -240,8 +249,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    signature and the randao reveal - 147 RLC items.  It must pass with
    one product pairing, the post-state's hashlib root must equal the
    block's ``state_root``, the withdrawal cursors must advance as the
-   spec says and the changes apply, a forged BLS-change signature must be
-   named alone and a wrong ``state_root`` must raise; the K1-K5 and K18
+   spec says and the changes apply and a forged BLS-change signature must
+   be named alone (phase 6 holds the wrong-root rejection); the K1-K5 and K18
    calls are held as in phase 13, and K1-K4 timed at the flush's shapes
    (per call queued ahead); the upgrades, ``process_withdrawals``,
    the flush, the changes' share of the flush (the block's items with and
@@ -291,12 +300,43 @@ Phases, each fatal on failure (no phase's failure is caught):
    16), the engine commits with no decline, no loop and no guard trip,
    K13 and K12 take Bellatrix's scalars, every K11-K15, K17 and K18 call
    is held, and the post-state ends at the hashlib root of a fresh
-   deserialization; K13 and K12 are timed per launch; at 4,096
+   deserialization; K14, K13 and K12 are timed per launch at their 2^20
+   calls; at 4,096
    validators with ``MIN_PER_EPOCH_CHURN_LIMIT = 16`` and 24 queued the
    spec loops, the columnar engine and the mesh engine give identical
-   roots and activate the same 8, leaking and not.
+   roots and activate the same 8, leaking and not;
+21. (run right after phase 19) a mainnet EIP-7594 block through the
+   port's ``state_transition`` on the card (``build_spec("eip7594",
+   "mainnet")``): ``upgrade_to_eip7594`` of phase 19's 2^20-validator
+   Deneb state after its cold root (a decode of its bytes: the copy; its
+   cold root's span builds checked and held, every field's root but the
+   fork's equal), a block at slot 3 with phase 19's content (the
+   attestations, the sync aggregate, the proposer signature and the randao
+   reveal signed under the EIP-7594 fork version, the 16 withdrawals,
+   phase 19's 16 BLS-to-execution changes as they are, phase 8's six
+   commitments with their blob transaction and gas: 147 RLC items).  One
+   batch scope holds ``is_data_available`` (``retrieve_cells_and_proofs``
+   hands back phase 9's 8 sampled columns, ``SAMPLES_PER_SLOT``, of each
+   blob with their cells and proofs) and ``state_transition``: each
+   blob's cell batch defers its two pairs, and the 147 items and six
+   checks pass as one product pairing, one K4 launch of one group of 160
+   pairs.  The post-state's hashlib root must equal the block's
+   ``state_root`` and carry the EIP-7594 fork version; a withheld blob
+   (five of six handed back) must answer False with no launch; outside a
+   block, a scope holding only ``is_data_available`` with one element of
+   one cell of blob 2 changed must fail its flush with
+   ``last_pairing_results`` naming blob 2 alone; the 8 columns as
+   ``DataColumnSidecar``s around the block's signed header must pass
+   ``verify_data_column_sidecar`` and
+   ``verify_data_column_sidecar_kzg_proofs`` (one K4 launch of 2 pairs
+   each, outside a scope); blob 0 through ``recover_polynomial`` from
+   phase 9's kept half must equal its extended cells (4 K9 launches, each
+   held).  Every K1-K5, K7 and K8 call at a shape no earlier phase held
+   is held against its plain version (K4's GT values too);
+   the upgrade, ``is_data_available`` (card and host), the flush, K4 at
+   160 pairs, the sidecar verifies and the recovery are timed.
 
-The hashlib roots of phases 6, 10, 13, 14, 17, 18, 19 and 20 (a fresh
+The hashlib roots of phases 6, 10, 13, 14, 17, 18, 19, 20 and 21 (a fresh
 deserialization of each large state, hashed without the batched hasher)
 are recomputed in three worker processes while the run goes on; the run
 waits for all of them, and fails on any that differs, before phase 16's
@@ -306,7 +346,7 @@ Needs one CUDA device; without one it exits non-zero and prints no result.
 The registry holds 1,024 keys, not mainnet's 2^20: the host-side
 KeyValidate (decompression and subgroup check, ~31 ms of python per key,
 paid once per registry key, not per block) dominates set-up otherwise;
-the 2^20 validators of phases 6, 10, 13, 14, 17, 18, 19 and 20 cycle over
+the 2^20 validators of phases 6, 10, 13, 14, 17, 19, 20 and 21 cycle over
 those keys.  The device work per block does not depend on the number of distinct keys; on
 the host, the cycled keys also keep the spec's linear pubkey search in
 ``process_sync_aggregate`` cheap (every key occurs within the first 1,024
@@ -712,19 +752,22 @@ def build_registry_state(spec, ssz, np, pks, n: int, scatter=None):
     return state
 
 
-def two_rejections(spec, state, block, signed, forged, item: int, what: str, tag: str) -> None:
+def two_rejections(spec, state, block, signed, forged, item: int, what: str, tag: str,
+                   wrong_root: bool = True) -> None:
     """``forged`` (``block`` with one signature replaced; ``what``) must
     raise in ``state_transition`` of a copy of ``state`` with
-    ``last_results`` naming its batch item ``item`` alone, and ``block``
-    with a wrong ``state_root`` must raise at the root check with every
-    signature passing.  ``signed`` signs a block message as its
-    proposer."""
+    ``last_results`` naming its batch item ``item`` alone, and, with
+    ``wrong_root``, ``block`` with a wrong ``state_root`` must raise at
+    the root check with every signature passing (phase 6 holds that leg:
+    the root check is ``Phase0Spec.state_transition``'s, which no later
+    fork overrides).  ``signed`` signs a block message as its proposer."""
     from consensus_specs_tpu_torch.utils import bls
     wrong = block.copy()
     wrong.state_root = b"\x01" * 32
     bls.clear_verify_memo()
     batches = []
-    for msg, name in ((forged, what), (wrong, "a wrong state_root")):
+    legs = ((forged, what), (wrong, "a wrong state_root"))[:2 if wrong_root else 1]
+    for msg, name in legs:
         with bls.scoped_batch(bls.DeferredBatch()) as batch:
             try:
                 spec.state_transition(state.copy(), signed(msg))
@@ -734,10 +777,12 @@ def two_rejections(spec, state, block, signed, forged, item: int, what: str, tag
         batches.append(batch)
     failed = [i for i, ok in enumerate(batches[0].last_results) if not ok]
     check(failed == [item], f"{tag}: {what} not isolated: {failed}")
-    check(batches[1].last_results is not None and all(batches[1].last_results),
-          f"{tag}: the wrong-root block must fail at the root check, not at a signature")
-    print(f"{tag}: {what}: AssertionError, last_results names item {failed} alone; a wrong "
-          f"state_root: AssertionError at the state-root check (signatures passed)")
+    if wrong_root:
+        check(batches[1].last_results is not None and all(batches[1].last_results),
+              f"{tag}: the wrong-root block must fail at the root check, not at a signature")
+    print(f"{tag}: {what}: AssertionError, last_results names item {failed} alone"
+          + ("; a wrong state_root: AssertionError at the state-root check (signatures passed)"
+             if wrong_root else ""))
 
 
 def phase0_block(torch, dev, card, sks, pks, n_validators: int) -> tuple:
@@ -1798,11 +1843,17 @@ def peerdas_phase(torch, dev, card, setup, blobs, cs, n_cols=SAMPLED_COLUMNS) ->
           f"{vcell_ms - sum(clock.ms.values()) - sum(vhost.ms.values()):.2f} on {card}")
     k8_cell = next(a for a, _ in k8.calls if a[0].shape[1] == width - K7.FIELD_ELEMENTS_PER_CELL)
     total = {k: rec_launches[k] + launches[k] for k in launches}
+    # phase 21 samples these columns of every blob and recovers blob 0 from
+    # the kept half
+    per_blob = len(cols)
+    sampling = [(cols, sampled[i * per_blob:(i + 1) * per_blob],
+                 proofs[i * per_blob:(i + 1) * per_blob]) for i in range(len(blobs))]
     return {"launches": total, "err": {"fr_fft": err9, "expand_windows": err7,
                                        "g1_msm": err8, "pairing_check": err4},
             "k9": k9.calls[0][0], "k8_cell": k8_cell, "recover_ms": recover_ms,
             "k7_calls": first_by_points(k7, k7_counts), "k4_call": k4.calls[0][0],
-            "proofs": proofs,
+            "proofs": proofs, "sampling": sampling, "recover_request": requests[0],
+            "extended": [x for cl in cells[0] for x in cl],
             "held": {(r.name, str(r.shapes(a))) for r in (k7, k8) for a, _ in r.calls},
             "k4_launches": launches["pairing_check"] - before["pairing_check"],
             "k9_path_ms": k9_ms, "k9_launches": rec_launches["fr_fft"], "k9_batches": batches,
@@ -2760,6 +2811,63 @@ def hold_new_shapes(torch, recorders, held: set, tag: str) -> dict:
     return err
 
 
+def hold_msm_by_shape(torch, k7, k8, held: set, tag: str) -> dict:
+    """Every K7 and K8 call that ``k7`` and ``k8`` kept at a shape no
+    earlier phase held (``held``), held against the plain versions at the
+    cost of two plain calls a shape: the first call of each shape is
+    replayed as it was; K7's calls of a shape are held at once by the
+    plain version of their points concatenated (each point's windows are
+    its own: the outputs concatenated must equal it word for word); K8's
+    calls of a shape through seeded 64-bit weights w_k over their tables
+    concatenated (every table point has order r, so sum_k [w_k] K8(T_k,
+    s_k) must equal the plain MSM of T_1 | ... | T_m with the scalars
+    w_k s_k mod r; the oracle sums the left side).  A wrong K8 output
+    passes only if the weights cancel its error.  Returns {kernel: the
+    largest word difference} (0)."""
+    import numpy as np
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import msm
+    from consensus_specs_tpu_torch.ops.bls12_381.curve import G1Point
+    from consensus_specs_tpu_torch.ops.torch_bls import convert as C
+    err, by_shape = {"expand_windows": 0, "msm_core": 0}, {}
+    for r in (k7, k8):
+        for args, out in r.calls:
+            key = (r.name, str(r.shapes(args)))
+            if key not in held:
+                by_shape.setdefault(key, []).append((args, out))
+    for (name, shape), calls in by_shape.items():
+        args0, out0 = calls[0]
+        plain = msm.expand_windows_plain if name == "expand_windows" else msm.msm_core_plain
+        err[name] = max(err[name], compare(torch, f"{name} at {shape}", out0,
+                                           as_tuple(plain(*args0))))
+        if len(calls) == 1:
+            continue
+        if name == "expand_windows":
+            pts = torch.cat([a[0] for a, _ in calls])
+            inf = torch.cat([a[1] for a, _ in calls])
+            got = torch.cat([o[0] for _, o in calls], dim=1)
+            err[name] = max(err[name], compare(
+                torch, f"{name}: its {len(calls)} calls at {shape} concatenated", (got,),
+                as_tuple(msm.expand_windows_plain(pts, inf))))
+            continue
+        weights = field_elements(b"k8-shape" + shape.encode(), len(calls), 1 << 64)
+        scalars, want = [], G1Point.inf()
+        for w, (a, o) in zip(weights, calls):
+            raw = np.ascontiguousarray(a[1].cpu().numpy()).view("<u4")
+            scalars += [w * int.from_bytes(row.tobytes(), "little") % K.BLS_MODULUS
+                        for row in raw]
+            want = want + C.unpack_g1(o[0][None].cpu(), o[1].reshape(1).cpu())[0].mult(w)
+        win = torch.cat([a[0] for a, _ in calls], dim=1)
+        aff, inf = msm.msm_core_plain(win, msm.scalar_words(scalars).to(win.device))
+        check(C.unpack_g1(aff[None].cpu(), inf.reshape(1).cpu())[0] == want,
+              f"K8: the weighted sum of its {len(calls)} calls at {shape} differs from the plain "
+              f"MSM of the concatenated tables")
+    print(f"{tag}: every K7 and K8 call at a shape no earlier phase held, held against its plain "
+          f"version ({ {k: len(v) for k, v in by_shape.items()} } calls by shape: the first of "
+          f"each replayed, K7's concatenated, K8's through seeded weights)")
+    return err
+
+
 def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     """Phase 13: a mainnet Altair block through ``state_transition`` on
     ``dev``: the state is ``upgrade_to_altair`` of phase 6's phase0 state
@@ -2863,13 +2971,13 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
     del tr["post"]
     err = hold_new_shapes(torch, tr["recorders"], held, "altair")
 
-    # -- the two rejections --------------------------------------------------------
+    # -- the forged signature (phase 6 holds the wrong-root rejection) ------------
     forged = block.copy()
     forged.body.sync_aggregate.sync_committee_signature = atts[0].signature
     # items: the proposer signature, the randao reveal, the attestations,
     # the sync aggregate last
     two_rejections(spec, state, block, signed, forged, len(atts) + 2,
-                   "a forged sync-aggregate signature", "altair")
+                   "a forged sync-aggregate signature", "altair", wrong_root=False)
     # phase 17 takes the pre-state on to Capella
     return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
             "transition_ms": t_total, "upgrade_s": t_up, "k18_launches": cold_launches,
@@ -2877,11 +2985,11 @@ def altair_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
 
 
 def altair_epoch_phase(torch, dev, card, pks, pre, quiet_pre, err: int) -> dict:
-    """Phase 14: an Altair epoch transition of phase 10's registry (2^20
-    validators, upgraded) through ``process_slots`` on the card, leaking,
-    and of phase 10's not-leaking registry (``quiet_pre``: its 2^18 one, or
-    None for ``pre`` itself) not leaking; the reduced leg at 4,096
-    validators.
+    """Phase 14: an Altair epoch transition of phase 10's not-leaking
+    registry (``quiet_pre``: its 2^18 one, a depth cut, or None for
+    ``pre`` itself), upgraded, through ``process_slots`` on the card,
+    leaking and not leaking; phase 10's 2^20 registry ``pre`` upgraded and
+    hashed for phase 20; the reduced leg at 4,096 validators.
     ``err``: phase 12's largest K13/K14 word difference."""
     import numpy as np
     from consensus_specs_tpu_torch.forks import build_spec
@@ -2924,12 +3032,14 @@ def altair_epoch_phase(torch, dev, card, pks, pre, quiet_pre, err: int) -> dict:
         quiet = altair_epoch_state(spec, ssz, np, quiet_pre, seed=14)
         del quiet_pre
         ssz.hash_tree_root(quiet)
-        print(f"altair epoch: the not-leaking run at {len(quiet.validators)} validators (phase "
-              f"10's depth cut); its state upgraded and hashed in "
+        print(f"altair epoch: both runs at {len(quiet.validators)} validators (phase 10's "
+              f"depth cut); its state upgraded and hashed in "
               f"{time.perf_counter() - t0:.2f} s")
     bls.bls_active = False              # epoch processing verifies no signature
+    # both runs take the not-leaking registry (a depth cut): the 2^20 base
+    # goes on to phase 20, which runs K14, K13 and K12 at 2^20 lanes
     runs = {"not_leaking": epoch_run(torch, dev, card, spec, quiet, "altair not leaking")}
-    runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, base), "altair leaking")
+    runs["leaking"] = epoch_run(torch, dev, card, spec, leaking(spec, quiet), "altair leaking")
     check(not runs["not_leaking"]["in_leak"] and runs["leaking"]["in_leak"],
           "the two altair runs must be one not leaking and one leaking")
     bls.bls_active = True
@@ -3206,13 +3316,13 @@ def capella_block_phase(torch, dev, card, sks, pks, pre, held: set) -> dict:
           f"{CHANGES} changes {turns[1]:.2f}, {turns[2]:.2f} ms: the changes' share "
           f"{share:.2f} ms (host work included) on {card}")
 
-    # -- the two rejections --------------------------------------------------------
+    # -- the forged signature (phase 6 holds the wrong-root rejection) ------------
     forged = block.copy()
     forged.body.bls_to_execution_changes[5].signature = changes[6].signature
     # items: the proposer signature, the randao reveal, the attestations,
     # the changes, the sync aggregate last
     two_rejections(spec, state, block, signed, forged, 2 + len(atts) + 5,
-                   "a forged BLS-to-execution change 5", "capella")
+                   "a forged BLS-to-execution change 5", "capella", wrong_root=False)
     return {"launches": {k: launches[k] for k in path_kernels}, "err": err,
             "transition_ms": t_total, "upgrade_s": t_up, "k18_launches": cold_launches,
             "k18_err": k18_err, "withdrawals_ms": ms["process_withdrawals"],
@@ -3250,12 +3360,14 @@ def bellatrix_scalars(spec, run, slashed_sum: int, tag: str) -> dict:
     return {"inactivity_scalar": s.inactivity_denominator, "adjusted_total": adjusted}
 
 
-def time_k13_k12(torch, card, ek, run, tag: str) -> dict:
-    """K13 and K12 per launch queued ahead at ``run``'s calls, beside their
-    bounds and plain versions."""
+def time_k13_k12(torch, card, ek, run, tag: str,
+                 names=("altair_deltas", "slashings")) -> dict:
+    """K13 and K12 (and the other epoch kernels of ``names``) per launch
+    queued ahead at ``run``'s calls, beside their bounds and plain
+    versions."""
     plain = epoch_plain(ek)
     times = {}
-    for name in ("altair_deltas", "slashings"):
+    for name in names:
         a = run["calls"][name][0][0]
         fn = getattr(ek, name)
         times[name] = queued_ms(torch, lambda: fn(*a))
@@ -3346,7 +3458,8 @@ def deneb_lanes(n: int, keys: int) -> list:
     return lanes
 
 
-def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) -> dict:
+def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set,
+                      after_cold=None) -> dict:
     """Phase 19: a mainnet Deneb block through ``state_transition`` on
     ``dev``: phase 17's Capella pre-state (2^20 validators, its 16 partial
     withdrawals due) through ``upgrade_to_deneb``; a block at slot 3 with
@@ -3359,7 +3472,10 @@ def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) ->
     one batch scope, as ``on_block`` composes them: the KZG batch's two
     pairs join the block's 147 RLC items in one product pairing (one K4
     launch).  ``blob``: phase 8's result; ``held``: (kernel, argument
-    shapes) held before."""
+    shapes) held before; ``after_cold(state)``: called on the upgraded
+    state after its cold root, before the state is transitioned in place
+    (phase 21 takes its upgrade there), its result returned as
+    ``forked``."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.forks import build_spec
     from consensus_specs_tpu_torch.ops import bls_torch, msm
@@ -3395,6 +3511,7 @@ def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) ->
           f"{cold_launches} launches in {spans.count} span builds at leaves "
           f"{sorted(a[0].shape[0] for a, _ in spans.calls)}, each held against its plain "
           f"version on {card}")
+    forked = after_cold(state) if after_cold is not None else None
 
     dry = state.copy()
     spec.process_slots(dry, BLOCK_SLOT)
@@ -3517,6 +3634,8 @@ def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) ->
     # every launched shape, before the holds drop the calls at shapes held before
     shapes = {r.name: sorted(r.by_shape) for r in tr["recorders"][:len(KERNELS)] + [k7, k8]}
     err = hold_new_shapes(torch, tr["recorders"] + [k7, k8], held, "deneb")
+    held_here = {(r.name, str(r.shapes(a))) for r in tr["recorders"] + [k7, k8]
+                 for a, _ in r.calls}
     k4_ms = queued_ms(torch, lambda: bls_torch.pairing_check(*k4_args), 5)
     print(f"time pairing_check at the deneb flush's group ({k4_args[0].shape[0]} pairs): "
           f"{k4_ms:.3f} ms per call queued ahead on {card}")
@@ -3547,7 +3666,8 @@ def deneb_block_phase(torch, dev, card, sks, pks, pre, blob: dict, held: set) ->
             "shapes": shapes, "transition_ms": t_total - avail["ms"], "available_ms": avail["ms"],
             "available_device_ms": avail["device_ms"], "upgrade_s": t_up,
             "k18_launches": cold_launches, "k18_err": k18_err, "flush_ms": ms["flush"],
-            "k4_call": k4_args, "k4_ms": k4_ms}
+            "k4_call": k4_args, "k4_ms": k4_ms, "held": held_here, "forked": forked,
+            "changes": changes, "changed": changed, "withdrawn": withdrawn}
 
 
 def add_pending(spec, state, pks, count: int) -> list:
@@ -3639,7 +3759,8 @@ def deneb_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
     print(f"deneb epoch: activated lanes {run['inspected']} of the {PENDING} queued "
           f"({lanes[0]}..{lanes[-1]}): the first {cap} by (eligibility epoch, index)")
     scalars = bellatrix_scalars(spec, run, slashed_sum, "deneb epoch")
-    times = time_k13_k12(torch, card, ek, run, "deneb")
+    times = time_k13_k12(torch, card, ek, run, "deneb",
+                         ("inactivity_updates", "altair_deltas", "slashings"))
     ospec = build_spec("deneb", "mainnet", REDUCED_CHURN)
     _, small, _ = to_capella(small)
     small = ospec.upgrade_to_deneb(small)
@@ -3650,6 +3771,342 @@ def deneb_epoch_phase(torch, dev, card, pks, base, small, err: int) -> dict:
     return {"runs": {"leaking": run}, "err": err, "cold_s": t_cold, "upgrade_s": t_up,
             "ms": times, "scalars": scalars, "activated": run["inspected"],
             "capella_rule": min(churn, eligible)}
+
+
+# ---------------------------------------------------------------------------
+# slice 16: the EIP-7594 runtime (a mainnet block whose six blobs are sampled
+# by cell, each blob's cell batch joining the block's one product pairing)
+# ---------------------------------------------------------------------------
+
+WITHHELD = BLOBS - 1            # blobs the withholding stub hands back
+ALTERED_BLOB = 2                # the blob with a changed sampled cell
+
+
+def eip7594_upgrade(torch, card, pre) -> dict:
+    """Phase 21's pre-state: ``upgrade_to_eip7594`` of phase 19's upgraded
+    Deneb state ``pre`` (its cold root taken), a decode of its bytes and so
+    the copy; the new state's cold root on K5 and K18 (every tree of 2^14
+    chunks or more built anew: each span build checked and held against
+    its plain version); every field's root but ``fork``'s equal to
+    ``pre``'s."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.parallel import mesh_merkle
+    from consensus_specs_tpu_torch.utils import ssz
+
+    spec = build_spec("eip7594", "mainnet")
+    n = len(pre.validators)
+    _build.reset_launches()
+    with CallRecorder(torch, mesh_merkle, "merkle_levels") as spans:
+        t0 = time.perf_counter()
+        state = spec.upgrade_to_eip7594(pre)
+        t_up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cold = bytes(ssz.hash_tree_root(state))
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+    launches = _build.launches["merkle_levels"]
+    # the decoded state's trees: the registry, balances, both participation
+    # lists, inactivity scores and the randao mixes
+    k18_check("eip7594: the upgrade and the cold root", spans.calls, launches,
+              [n, -(-n // 4), -(-n // 32), -(-n // 32), -(-n // 4),
+               int(spec.EPOCHS_PER_HISTORICAL_VECTOR)])
+    k18_err = spans.hold(mesh_merkle.merkle_levels_plain)
+    differ = [f for f in type(state)._fields
+              if bytes(ssz.hash_tree_root(getattr(state, f)))
+              != bytes(ssz.hash_tree_root(getattr(pre, f)))]
+    check(differ == ["fork"], f"eip7594: the upgrade changed {differ}, not only the fork")
+    check(bytes(state.fork.current_version) == bytes(spec.config.EIP7594_FORK_VERSION)
+          and bytes(state.fork.previous_version) == bytes(pre.fork.current_version),
+          "eip7594: the upgraded state's fork versions")
+    print(f"eip7594: upgrade_to_eip7594 {t_up:.2f} s of phase 19's {n}-validator Deneb state "
+          f"(host: serialize and decode, the copy); cold root {t_cold:.3f} s on K5 "
+          f"({cold.hex()[:16]}); K18 {launches} launches in {spans.count} span builds at leaves "
+          f"{sorted(a[0].shape[0] for a, _ in spans.calls)}, each held against its plain "
+          f"version; every field's root but the fork's equal to the pre-state's on {card}")
+    return {"spec": spec, "state": state, "upgrade_s": t_up, "cold_s": t_cold,
+            "k18_launches": launches, "k18_err": k18_err}
+
+
+def altered_cell(cell: bytes) -> bytes:
+    """``cell`` with its second field element plus one (mod r)."""
+    from consensus_specs_tpu_torch.ops.kzg import BLS_MODULUS
+    x = int.from_bytes(cell[32:64], "big")
+    return cell[:32] + ((x + 1) % BLS_MODULUS).to_bytes(32, "big") + cell[64:]
+
+
+def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob: dict,
+                        das: dict, held: set) -> dict:
+    """Phase 21: a mainnet EIP-7594 block through ``state_transition`` on
+    ``dev``: ``up``'s state (:func:`eip7594_upgrade` of phase 19's Deneb
+    state), a block at slot 3 with phase 19's content (128 attestations,
+    the sync aggregate, the proposer signature and the randao reveal
+    signed under the EIP-7594 fork version; the same 16 withdrawals;
+    phase 19's 16 BLS-to-execution changes as they are, signed under the
+    genesis domain; phase 8's six commitments with their blob transaction
+    and blob gas: 147 RLC items).  ``is_data_available`` samples
+    ``SAMPLES_PER_SLOT`` columns of each blob (its
+    ``retrieve_cells_and_proofs`` hands back phase 9's 8 columns, cells
+    and proofs) in one batch scope with ``state_transition``: each blob's
+    cell batch defers its two pairs, and the 147 items and the six checks
+    pass as one product pairing, one K4 launch of one group of 160 pairs.
+    Then: a withheld blob answers False with no launch; outside a block, a
+    scope holding only ``is_data_available`` with one element of one cell
+    of blob 2 changed fails its flush, ``last_pairing_results`` naming that
+    blob's check alone; the 8 columns as ``DataColumnSidecar``s around the
+    block's signed header verify (one K4 launch of 2 pairs each, outside a
+    scope); blob 0 through ``recover_polynomial`` from phase 9's kept half
+    equals its extended cells (4 K9 launches, each held).  Every K1-K5,
+    K7 and K8 call at a shape no earlier phase held (``held``) is held
+    against its plain version (K4's GT values too; K7 and K8 by shape,
+    :func:`hold_msm_by_shape`)."""
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.ops import bls_torch, fr_fft, msm
+    from consensus_specs_tpu_torch.utils import bls, ssz
+
+    spec, state = up["spec"], up.pop("state")
+    cs, sampling = blob["cs"], das["sampling"]
+    cols = sampling[0][0]
+    check(len(sampling) == len(cs) and all(ids == cols for ids, _, _ in sampling)
+          and len(cols) == int(spec.SAMPLES_PER_SLOT),
+          f"eip7594: phase 9's sampling must give {int(spec.SAMPLES_PER_SLOT)} columns a blob")
+    dry = state.copy()
+    spec.process_slots(dry, BLOCK_SLOT)
+    proposer = int(spec.get_beacon_proposer_index(dry))
+    parts = signed_body(spec, dry, sks, pks, proposer)
+    atts = parts["atts"]
+    expected = spec.get_expected_withdrawals(dry)
+    check([int(w.validator_index) for w in expected] == dblock["withdrawn"],
+          f"eip7594: expected withdrawals at {[int(w.validator_index) for w in expected]}")
+    hashes = [bytes(spec.kzg_commitment_to_versioned_hash(c)) for c in cs]
+    payload = block_payload(spec, dry, expected, transactions=[b"\x03" + b"".join(hashes)],
+                            blob_gas_used=len(cs) * GAS_PER_BLOB, excess_blob_gas=0)
+    changes = [ssz.deserialize(spec.SignedBLSToExecutionChange, ssz.serialize(c))
+               for c in dblock["changes"]]
+    block = spec.BeaconBlock(
+        slot=BLOCK_SLOT, proposer_index=proposer,
+        parent_root=ssz.hash_tree_root(dry.latest_block_header),
+        body=spec.BeaconBlockBody(randao_reveal=parts["randao"], eth1_data=dry.eth1_data,
+                                  attestations=atts, sync_aggregate=parts["sync"],
+                                  execution_payload=payload, bls_to_execution_changes=changes,
+                                  blob_kzg_commitments=cs))
+    items = len(atts) + 3 + len(changes)
+    print(f"eip7594 block: slot {BLOCK_SLOT}, proposer {proposer}, {len(atts)} attestations, a "
+          f"sync aggregate of {sum(parts['bits'])} of {SYNC} members, {len(expected)} "
+          f"withdrawals, phase 19's {len(changes)} BLS-to-execution changes, {len(cs)} blob "
+          f"commitments sampled at columns {cols} (SAMPLES_PER_SLOT "
+          f"{int(spec.SAMPLES_PER_SLOT)} of NUMBER_OF_COLUMNS {int(spec.NUMBER_OF_COLUMNS)}), "
+          f"{items} RLC items and {len(cs)} deferred cell checks; set-up: committees "
+          f"{parts['comm_s']:.2f} s, signing {parts['sign_s']:.2f} s (host)")
+    signed = proposer_signer(spec, dry, sks, proposer)
+    bls.bls_active = False
+    t0 = time.perf_counter()
+    spec.process_block(dry, block.copy())
+    block.state_root = ssz.hash_tree_root(dry)
+    bls.bls_active = True
+    del dry
+    print(f"eip7594 dry run on a copy: process_block + root {time.perf_counter() - t0:.2f} s")
+    sblock = signed(block.copy())
+
+    # -- is_data_available and the transition in one scope on the card ------------
+    engine, noop = RecordingEngine(), spec.EXECUTION_ENGINE
+    spec.EXECUTION_ENGINE = engine
+    spec.retrieve_cells_and_proofs = lambda root: sampling
+    root = ssz.hash_tree_root(block)
+    avail = {}
+
+    def availability():
+        clock = StageClock(sync=torch.cuda.synchronize)
+        for name in ("expand_windows", "msm_core"):
+            clock.wrap(msm, name)
+        t0 = time.perf_counter()
+        try:
+            avail["ok"] = spec.is_data_available(root, block.body.blob_kzg_commitments)
+        finally:
+            clock.restore()
+        avail["ms"] = (time.perf_counter() - t0) * 1e3
+        avail["device_ms"] = sum(clock.ms.values())
+
+    with CallRecorder(torch, msm, "expand_windows") as k7, \
+            CallRecorder(torch, msm, "msm_core") as k8:
+        tr = card_transition(torch, spec, state, sblock,
+                             ("process_slots", "process_block", "process_execution_payload",
+                              "process_attestation"), within=availability, copy=False)
+    batch, launches, ms, t_total = tr["batch"], tr["launches"], tr["ms"], tr["total_ms"]
+    post = tr["post"]
+    path_kernels = KERNELS + ("hash64", "expand_windows", "g1_msm")
+    k4_args = tr["recorders"][KERNELS.index("pairing_check")].calls[0][0]
+    pairs = items + 1 + 2 * len(cs)
+    check(avail["ok"] is True, "eip7594: is_data_available must answer True inside the scope")
+    check(batch.pairings == 1 and launches["pairing_check"] == 1,
+          f"eip7594: expected one product pairing and one K4 launch for the block and its "
+          f"blobs' cells, got {batch.pairings} pairings, {launches['pairing_check']} K4 launches")
+    check(batch.last_results == [True] * items
+          and batch.last_pairing_results == [True] * len(cs),
+          f"eip7594: last_results must be {items} x True and last_pairing_results "
+          f"{len(cs)} x True")
+    check(k4_args[0].shape[0] == pairs and k4_args[3].shape[0] == 2,
+          f"eip7594: K4's call holds {k4_args[0].shape[0]} pairs in "
+          f"{k4_args[3].shape[0] - 1} groups, expected one group of {pairs}")
+    check(all(launches[k] > 0 for k in path_kernels),
+          f"eip7594: a kernel of the block's path was not launched: {launches}")
+    check(len(engine.requests) == 1 and [bytes(h) for h in engine.requests[0].versioned_hashes]
+          == [b"\x01" + hashlib.sha256(bytes(c)).digest()[1:] for c in cs],
+          "eip7594: the engine's versioned hashes")
+    check(bytes(post.fork.current_version) == bytes(spec.config.EIP7594_FORK_VERSION)
+          and int(post.latest_execution_payload_header.blob_gas_used) == len(cs) * GAS_PER_BLOB
+          and int(post.next_withdrawal_index) == WITHDRAWALS,
+          "eip7594: the post-state's fork, payload header or withdrawal cursor")
+    rest = ms["process_block"] - sum(ms[k] for k in (
+        "process_execution_payload", "process_attestation", "flush"))
+    print(f"eip7594: is_data_available and state_transition in one scope passed with "
+          f"{batch.pairings} product pairing: {len(batch.last_results)} items and "
+          f"{len(batch.last_pairing_results)} deferred checks (das_cells, one a blob) in one K4 "
+          f"group of {k4_args[0].shape[0]} pairs; the post-state carries fork version "
+          f"{bytes(post.fork.current_version).hex()}; launches "
+          f"{ {k: launches[k] for k in path_kernels} }")
+    print(f"time eip7594 is_data_available ({len(cs)} blobs x {len(cols)} cells, deferred): "
+          f"{avail['ms']:.2f} ms = device (K7 and K8 wrappers, synchronized) "
+          f"{avail['device_ms']:.2f} + host {avail['ms'] - avail['device_ms']:.2f} on {card}")
+    print(f"time eip7594 state_transition (validate_result=True): {t_total - avail['ms']:.2f} ms = "
+          f"slots {ms['process_slots']:.2f} + process_execution_payload "
+          f"{ms['process_execution_payload']:.2f} + process_attestation x{len(atts)} "
+          f"{ms['process_attestation']:.2f} + flush {ms['flush']:.2f} (_decompress_g2 "
+          f"{ms['_decompress_g2']:.2f}; {items} items and {len(cs)} cell checks) + rest of "
+          f"process_block {rest:.2f} + state-root check and block signature "
+          f"{t_total - avail['ms'] - ms['process_slots'] - ms['process_block']:.2f} on {card}")
+    hashlib_roots.submit("the EIP-7594 block's post-state (the block's state_root)", spec, ssz,
+                         post, bytes(block.state_root))
+    del post, tr["post"], state
+    shapes = {r.name: sorted(r.by_shape) for r in tr["recorders"][:len(KERNELS)] + [k7, k8]}
+    err = hold_new_shapes(torch, tr["recorders"], held, "eip7594")
+    err.update(hold_msm_by_shape(torch, k7, k8, held, "eip7594"))
+    held = held | {(r.name, str(r.shapes(a))) for r in tr["recorders"] + [k7, k8]
+                   for a, _ in r.calls}
+    k4_ms = queued_ms(torch, lambda: bls_torch.pairing_check(*k4_args), 5)
+    print(f"time pairing_check at the eip7594 flush's group ({k4_args[0].shape[0]} pairs): "
+          f"{k4_ms:.3f} ms per call queued ahead on {card}")
+    # K7 and K8 at each shape the cell batches gave them, at its first call
+    shape_ms = {}
+    for r, name in ((k7, "expand_windows"), (k8, "g1_msm")):
+        firsts = {}
+        for a, _ in r.calls:
+            firsts.setdefault(str(r.shapes(a)), a)
+        fn = getattr(msm, r.name)
+        shape_ms[name] = {sh: queued_ms(torch, lambda: fn(*a), 10) for sh, a in firsts.items()}
+    print("time expand_windows and g1_msm at the eip7594 cell batches' shapes (ms per call "
+          "queued ahead): " + "; ".join(f"{k} {sh} {ms:.4f}" for k, v in shape_ms.items()
+                                        for sh, ms in v.items()) + f" on {card}")
+
+    # -- a withheld blob; a changed cell outside a block; the sidecars ---------------
+    recs = [CallRecorder(torch, bls_torch, "pairing_check"),
+            CallRecorder(torch, msm, "expand_windows"), CallRecorder(torch, msm, "msm_core")]
+    for r in recs:
+        r.__enter__()
+    try:
+        spec.retrieve_cells_and_proofs = lambda root: sampling[:WITHHELD]
+        _build.reset_launches()
+        check(spec.is_data_available(root, cs) is False,
+              f"eip7594: {WITHHELD} of {len(cs)} blobs sampled must answer False")
+        torch.cuda.synchronize()
+        withheld = {k: _build.launches[k] for k in ("pairing_check", "expand_windows", "g1_msm")}
+        check(not any(withheld.values()), f"eip7594: the withheld blob launched {withheld}")
+
+        bad = list(sampling)
+        ids, cells, proofs = sampling[ALTERED_BLOB]
+        bad[ALTERED_BLOB] = (ids, [altered_cell(cells[0])] + list(cells[1:]), proofs)
+        spec.retrieve_cells_and_proofs = lambda root: bad
+        bls.clear_verify_memo()
+        _build.reset_launches()
+        with bls.scoped_batch(bls.DeferredBatch()) as b:
+            check(spec.is_data_available(root, cs) is True,
+                  "eip7594: a deferred cell check answers True in the scope")
+            ok = b.flush()
+        torch.cuda.synchronize()
+        altered_k4 = _build.launches["pairing_check"]
+        named = [True] * len(cs)
+        named[ALTERED_BLOB] = False
+        check(ok is False and b.last_results == [] and b.last_pairing_results == named,
+              f"eip7594: a changed cell of blob {ALTERED_BLOB} not named alone: {ok}, "
+              f"{b.last_results}, {b.last_pairing_results}")
+        check(altered_k4 == 1 + len(cs), f"eip7594: {altered_k4} K4 launches for the flush and "
+                                         f"its {len(cs)} checks alone")
+        print(f"eip7594: {WITHHELD} of {len(cs)} blobs sampled: False with no launch; outside a "
+              f"block, one element of a cell of blob {ALTERED_BLOB} changed: the flush of the "
+              f"{len(cs)} deferred checks fails, last_pairing_results {b.last_pairing_results} "
+              f"({b.pairings} pairing evaluations, {altered_k4} K4 launches, no item and no G2 "
+              f"decompression)")
+
+        header = spec.signed_block_header(sblock)
+        sidecars = [spec.DataColumnSidecar(
+            index=c, column=[cl[k] for _, cl, _ in sampling], kzg_commitments=cs,
+            kzg_proofs=[pr[k] for _, _, pr in sampling], signed_block_header=header)
+            for k, c in enumerate(cols)]
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sc in sidecars:
+            check(spec.verify_data_column_sidecar(sc) is True,
+                  f"eip7594: sidecar {int(sc.index)} is not well formed")
+            check(spec.verify_data_column_sidecar_kzg_proofs(sc) is True,
+                  f"eip7594: sidecar {int(sc.index)}'s cells must verify")
+        torch.cuda.synchronize()
+        sidecar_ms = (time.perf_counter() - t0) * 1e3
+        sidecar_launches = {k: _build.launches[k] for k in ("pairing_check", "expand_windows",
+                                                            "g1_msm")}
+        check(sidecar_launches["pairing_check"] == len(sidecars),
+              f"eip7594: the sidecars made {sidecar_launches['pairing_check']} K4 launches, "
+              f"expected one each")
+        print(f"eip7594: {len(sidecars)} DataColumnSidecars around the block's signed header "
+              f"(columns {cols}, {len(cs)} cells each) pass verify_data_column_sidecar and "
+              f"verify_data_column_sidecar_kzg_proofs outside a scope; launches "
+              f"{sidecar_launches}; {sidecar_ms:.2f} ms in all ({sidecar_ms / len(sidecars):.2f} "
+              f"a sidecar, host work included) on {card}")
+    finally:
+        for r in reversed(recs):
+            r.__exit__()
+        if "retrieve_cells_and_proofs" in vars(spec):
+            del spec.retrieve_cells_and_proofs
+        spec.EXECUTION_ENGINE = noop
+    tag = "eip7594 withheld, changed cell and sidecars"
+    err_more = hold_new_shapes(torch, recs[:1], held, tag)
+    err_more.update(hold_msm_by_shape(torch, recs[1], recs[2], held, tag))
+
+    # -- blob 0 recovered from phase 9's kept half through the spec -----------------
+    ids, cells_b = das["recover_request"]
+    with CallRecorder(torch, fr_fft, "fr_fft") as k9:
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = spec.recover_polynomial(ids, cells_b)
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        k9_launches = _build.launches["fr_fft"]
+    check(data == das["extended"], "eip7594: recover_polynomial differs from blob 0's cells")
+    check(k9_launches == k9.count == 4,
+          f"eip7594: recover_polynomial made {k9_launches} K9 launches in {k9.count} calls, "
+          f"expected 4 (one a batched FFT)")
+    err9 = k9.hold(fr_fft.fr_fft_plain)
+    print(f"eip7594: recover_polynomial of blob 0 from {len(ids)} of "
+          f"{int(spec.NUMBER_OF_COLUMNS)} cells equals its extended cells: {recover_ms:.2f} ms, "
+          f"{k9_launches} K9 launches at {sorted({str(k9.shapes(a)) for a, _ in k9.calls})}, "
+          f"each held against its plain version on {card}")
+    for k, v in err_more.items():
+        err[k] = max(err.get(k, 0), v)
+    err["fr_fft"] = err9
+    # the kernels line names K8 g1_msm
+    err["g1_msm"] = err.pop("msm_core")
+    shapes["g1_msm"] = shapes.pop("msm_core")
+    return {"launches": {k: launches[k] for k in path_kernels}, "err": err, "shapes": shapes,
+            "k4_call": k4_args, "k4_ms": k4_ms, "shape_ms": shape_ms,
+            "sidecar_launches": sidecar_launches,
+            "sidecar_ms": sidecar_ms, "withheld_launches": withheld,
+            "altered_k4_launches": altered_k4, "recover_ms": recover_ms,
+            "k9_launches": k9_launches, "k9_shapes": sorted(k9.by_shape),
+            "available_ms": avail["ms"], "available_device_ms": avail["device_ms"],
+            "transition_ms": t_total - avail["ms"], "flush_ms": ms["flush"],
+            "upgrade_s": up["upgrade_s"], "cold_s": up["cold_s"],
+            "k18_launches": up["k18_launches"], "k18_err": up["k18_err"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4659,9 +5116,114 @@ def probe_sweep(torch, dev, runs: int) -> dict:
         bls.bls_active = True
 
 
+def probe_eip7594(torch, dev) -> dict:
+    """EIP-7594 at full width through the spec's entry points on the card
+    (the proposer's path, too long for the smoke): one seeded mainnet
+    blob through ``compute_cells_and_proofs`` (128 multiproofs, timed
+    split into host polynomial work and ``g1_lincomb``), a seeded half of
+    its cells through ``recover_cells_and_kzg_proofs`` (the same cells
+    and proofs back), the 128 ``DataColumnSidecar``s of a one-blob block
+    each through ``verify_data_column_sidecar_kzg_proofs`` outside a scope
+    (one K4 launch each); then ``upgrade_to_eip7594`` of a 2^20-validator
+    Deneb state (serialize and decode) and the new state's cold root."""
+    import numpy as np
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forks import build_spec
+    from consensus_specs_tpu_torch.ops import kzg as K
+    from consensus_specs_tpu_torch.ops import kzg_7594 as K7
+    from consensus_specs_tpu_torch.ops import msm, sha256
+    from consensus_specs_tpu_torch.utils import bls, ssz
+    bls.use_torch(dev)
+    sha256.install_merkle_hasher(dev)
+    spec = build_spec("eip7594", "mainnet")
+    setup, width = spec.kzg_setup, int(spec.FIELD_ELEMENTS_PER_BLOB)
+    n_cells = spec.cells_per_blob()
+    blob = b"".join(x.to_bytes(32, "big")
+                    for x in field_elements(b"probe-7594", width, K.BLS_MODULUS))
+    t0 = time.perf_counter()
+    for p in setup.KZG_SETUP_G1_MONOMIAL:
+        K._to_g1(p)
+    out = {"monomial_decompression_s": time.perf_counter() - t0}
+    commitment = spec.blob_to_kzg_commitment(blob)
+
+    host, card = StageClock(), StageClock(sync=torch.cuda.synchronize)
+    host.wrap(K, "g1_lincomb")
+    for name in PROOF_HOST_STAGES:
+        host.wrap(K7, name)
+    for name in ("expand_windows", "msm_core"):
+        card.wrap(msm, name)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cells, proofs = spec.compute_cells_and_proofs(blob)
+    torch.cuda.synchronize()
+    out["proofs_s"] = time.perf_counter() - t0
+    host.restore()
+    card.restore()
+    out["proofs_g1_lincomb_s"] = host.ms["g1_lincomb"] / 1e3
+    out["proofs_card_s"] = sum(card.ms.values()) / 1e3
+    out["proofs_polynomial_s"] = sum(host.ms.get(k, 0.0) for k in PROOF_HOST_STAGES) / 1e3
+    out["proofs_launches"] = {k: _build.launches[k] for k in ("expand_windows", "g1_msm")}
+    check(len(proofs) == n_cells and cells == spec.compute_cells(blob),
+          "eip7594 probe: compute_cells_and_proofs' cells")
+    check(all(spec.verify_cell_proof(commitment, i, spec.cell_to_bytes(cells[i]), proofs[i])
+              for i in (0, n_cells - 1)), "eip7594 probe: a cell proof fails verify_cell_proof")
+
+    order = sorted(range(n_cells), key=lambda c: hashlib.sha256(SEED + b"half" + bytes([c])).digest())
+    half = sorted(order[:n_cells // 2])
+    t0 = time.perf_counter()
+    got_cells, got_proofs = spec.recover_cells_and_kzg_proofs(
+        half, [spec.cell_to_bytes(cells[i]) for i in half])
+    torch.cuda.synchronize()
+    out["recover_with_proofs_s"] = time.perf_counter() - t0
+    check(got_cells == cells and got_proofs == proofs,
+          "eip7594 probe: recovered cells or proofs differ")
+
+    block = spec.BeaconBlock(slot=1, body=spec.BeaconBlockBody(blob_kzg_commitments=[commitment]))
+    signed = spec.SignedBeaconBlock(message=block, signature=b"\xc0" + b"\x00" * 95)
+    t0 = time.perf_counter()
+    sidecars = spec.get_data_column_sidecars(signed, [(cells, proofs)])
+    out["sidecars_build_s"] = time.perf_counter() - t0
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    check(all(spec.verify_data_column_sidecar_kzg_proofs(sc) for sc in sidecars),
+          "eip7594 probe: a sidecar fails")
+    torch.cuda.synchronize()
+    out["sidecars_verify_s"] = time.perf_counter() - t0
+    out["sidecars_k4_launches"] = _build.launches["pairing_check"]
+    check(len(sidecars) == n_cells and out["sidecars_k4_launches"] == n_cells,
+          f"eip7594 probe: {out['sidecars_k4_launches']} K4 launches for {len(sidecars)} sidecars")
+
+    dspec = build_spec("deneb", "mainnet")
+    n = VALIDATORS
+    keys = [hashlib.sha256(SEED + b"probe key" + i.to_bytes(4, "little")).digest()[:16] * 3
+            for i in range(REGISTRY)]
+    t0 = time.perf_counter()
+    pre = build_registry_state(dspec, ssz, np, keys, n)
+    for name, width_b in (("previous_epoch_participation", 1), ("current_epoch_participation", 1),
+                          ("inactivity_scores", 8)):
+        setattr(pre, name, ssz.deserialize(type(getattr(pre, name)), bytes(width_b * n)))
+    ssz.hash_tree_root(pre)
+    torch.cuda.synchronize()
+    out["deneb_state_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = pre.serialize()
+    out["serialize_s"] = time.perf_counter() - t0
+    del data
+    t0 = time.perf_counter()
+    post = spec.upgrade_to_eip7594(pre)
+    out["upgrade_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ssz.hash_tree_root(post)
+    torch.cuda.synchronize()
+    out["cold_root_s"] = time.perf_counter() - t0
+    check(bytes(post.fork.current_version) == bytes(spec.config.EIP7594_FORK_VERSION)
+          and len(post.validators) == n, "eip7594 probe: the upgraded state")
+    return out
+
+
 PROBES = {"k1": probe_k1, "k18": probe_k18, "k3": probe_k3, "k2": probe_k2, "k7": probe_k7,
           "k4": probe_k4, "k8": probe_k8, "k15": probe_k15, "k9": probe_k9, "k17": probe_k17,
-          "epoch": probe_epoch, "sha": probe_sha}
+          "epoch": probe_epoch, "sha": probe_sha, "eip7594": probe_eip7594}
 
 
 def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
@@ -4697,6 +5259,8 @@ def probe_main(torch, card: str, root: str, runs: int, only=None) -> int:
     for name, ms in {**result.get("epoch", {}), **result.get("sha", {})}.items():
         unit = "" if "ns per" in name or "floor" in name else " ms per call queued ahead"
         print(f"{name}: {ms:.6f}{unit} on {card}")
+    for name, v in result.get("eip7594", {}).items():
+        print(f"eip7594 {name}: {v} on {card}")
     if runs:
         result["sweep"] = probe_sweep(torch, dev, runs)
     print(card)
@@ -4715,7 +5279,8 @@ def main(argv=None) -> int:
                     help="with --probe: a checkout of the port inside this one to measure")
     ap.add_argument("--only", default=None, metavar="K1,K18,...",
                     help="with --probe: time only these (of K1, K18, K3, K2, K7, K4, K8, K15, "
-                         "K9, K17, epoch: K10-K14 and K16, sha: K5 and K6)")
+                         "K9, K17, epoch: K10-K14 and K16, sha: K5 and K6, eip7594: the "
+                         "full-width cell proofs, recovery, sidecars and the 2^20 upgrade)")
     ap.add_argument("--sweep", type=int, default=0, metavar="RUNS",
                     help="with --probe: the engine sweep, the least of RUNS runs each")
     opts = ap.parse_args(argv)
@@ -5129,7 +5694,8 @@ def main(argv=None) -> int:
     # ---- 19. a mainnet Deneb block with six blobs (phase 17's pre-state taken
     # on through upgrade_to_deneb, phase 8's blobs) -----------------------------
     dblock = deneb_block_phase(torch, cu, card, sks, pks, cblock.pop("state"), blob,
-                               held | cblock["held"] | blob["held"])
+                               held | cblock["held"] | blob["held"],
+                               after_cold=lambda st: eip7594_upgrade(torch, card, st))
     for e in kernels:
         if e["name"] in dblock["launches"]:
             e["deneb_block_launches"] = dblock["launches"][e["name"]]
@@ -5139,6 +5705,23 @@ def main(argv=None) -> int:
     mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], dblock["k18_err"])
 
     lap("phase 19")
+
+    # ---- 21. a mainnet EIP-7594 block whose six blobs are sampled by cell
+    # (phase 19's Deneb state upgraded after its cold root, phase 9's cells) ----
+    k4_held = {("pairing_check", str([tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]))
+               for a in (blob["k4_call"], das["k4_call"])}
+    eblock = eip7594_block_phase(torch, cu, card, sks, pks, dblock.pop("forked"), dblock, blob,
+                                 das, held | cblock["held"] | blob["held"] | das["held"]
+                                 | dblock["held"] | k4_held)
+    for e in kernels:
+        if e["name"] in eblock["launches"]:
+            e["eip7594_block_launches"] = eblock["launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], eblock["err"][e["name"]])
+        if e["name"] in eblock["shapes"]:
+            e["eip7594_block_shapes"] = eblock["shapes"][e["name"]]
+    mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], eblock["k18_err"])
+
+    lap("phase 21")
 
     # ---- K4 at every path's shape; K7-K9 per launch ------------------------------
     k4 = next(e for e in kernels if e["name"] == "pairing_check")
@@ -5152,8 +5735,13 @@ def main(argv=None) -> int:
         "blob batch verify": (blob["k4_call"], blob["k4_launches"]),
         "cell batch verify": (das["k4_call"], das["k4_launches"]),
         "capella block flush": (cblock["k4_call"], cblock["launches"]["pairing_check"]),
-        "deneb block flush": (dblock["k4_call"], dblock["launches"]["pairing_check"])})
+        "deneb block flush": (dblock["k4_call"], dblock["launches"]["pairing_check"]),
+        "eip7594 block flush": (eblock["k4_call"], eblock["launches"]["pairing_check"])})
     k4["deneb_block_ms"] = dblock["k4_ms"]
+    k4["eip7594_block_ms"] = eblock["k4_ms"]
+    k4["eip7594_sidecar_launches"] = eblock["sidecar_launches"]["pairing_check"]
+    k4["eip7594_changed_cell_launches"] = eblock["altered_k4_launches"]
+    k4["eip7594_withheld_launches"] = eblock["withheld_launches"]["pairing_check"]
     kernels += slice3_entries(torch, card, blob, das, err, s3_launches)
     for e in kernels:
         if e["name"] in ("expand_windows", "g1_msm"):
@@ -5161,6 +5749,15 @@ def main(argv=None) -> int:
             e["deneb_block_launches"] = dblock["launches"][e["name"]]
             e["deneb_block_shapes"] = dblock["shapes"][rec]
             e["max_abs_err"] = max(e["max_abs_err"], dblock["err"][rec])
+            e["eip7594_block_launches"] = eblock["launches"][e["name"]]
+            e["eip7594_block_shapes"] = eblock["shapes"][e["name"]]
+            e["eip7594_block_shape_ms"] = eblock["shape_ms"][e["name"]]
+            e["eip7594_sidecar_launches"] = eblock["sidecar_launches"][e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], eblock["err"][e["name"]])
+        if e["name"] == "fr_fft":
+            e["eip7594_recover_launches"] = eblock["k9_launches"]
+            e["eip7594_recover_shapes"] = eblock["k9_shapes"]
+            e["max_abs_err"] = max(e["max_abs_err"], eblock["err"]["fr_fft"])
 
     lap("K4 shapes, K7-K9 timed")
 
@@ -5218,7 +5815,8 @@ def main(argv=None) -> int:
     paths = {"phase0_block_cold_root": {"merkle_levels": cold_k18["launches"]},
              "altair_upgrade_and_cold_root": {"merkle_levels": ablock["k18_launches"]},
              "capella_upgrades_and_cold_root": {"merkle_levels": cblock["k18_launches"]},
-             "deneb_upgrade_and_cold_root": {"merkle_levels": dblock["k18_launches"]}}
+             "deneb_upgrade_and_cold_root": {"merkle_levels": dblock["k18_launches"]},
+             "eip7594_upgrade_and_cold_root": {"merkle_levels": eblock["k18_launches"]}}
     for tag, phase in (("phase0_epoch", epoch), ("altair_epoch", aepoch),
                        ("capella_epoch", cepoch), ("deneb_epoch", depoch)):
         paths[tag] = {k: max(r["launches"][k] for r in phase["runs"].values())
@@ -5232,7 +5830,7 @@ def main(argv=None) -> int:
 
     lap("phase 16 (K15-K18 timed)")
 
-    # ---- the hashlib recomputes of phases 6, 10, 13, 14, 17, 18, 19 and 20 ------
+    # ---- the hashlib recomputes of phases 6, 10, 13, 14, 17, 18, 19, 20 and 21 --
     hashlib_roots.finish()
 
     lap("hashlib roots (waited for)")

@@ -15,7 +15,7 @@ from typing import Any, Dict
 PKG_ROOT = Path(__file__).resolve().parent.parent
 
 # the forks whose preset files this package carries, in fork order
-FORKS = ("phase0", "altair", "bellatrix", "capella", "deneb")
+FORKS = ("phase0", "altair", "bellatrix", "capella", "deneb", "eip7594")
 
 
 def _read_flat_yaml(path) -> Dict[str, str]:

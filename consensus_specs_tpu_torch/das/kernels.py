@@ -1,7 +1,10 @@
 """Batched DAS crypto: one pairing per cell-proof batch, columnar
 multi-blob erasure recovery.
 
-Counterpart of ``consensus_specs_tpu/das/kernels.py``.
+Counterpart of ``consensus_specs_tpu/das/kernels.py``.  The EIP-7594
+runtime (``forks/eip7594.py``) calls it: its ``verify_cell_proof_batch``
+is :func:`verify_cell_proof_batch`, its ``recover_polynomial`` one
+request of :func:`recover_cells_batch`.
 
 Verification - the per-cell check ``e(pi_k, [tau^L - s_k]_2) ==
 e(C_k - [I_k(tau)]_1, [1]_2)`` (``L = FIELD_ELEMENTS_PER_CELL``,

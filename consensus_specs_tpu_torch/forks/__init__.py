@@ -4,10 +4,11 @@ Counterpart of ``consensus_specs_tpu/forks/__init__.py``.  Each fork is a
 class extending the previous fork's class; ``build_spec(fork, preset)``
 instantiates a fork spec bound to a preset and config, cached per
 (fork, preset, overrides).  The port carries phase0, Altair, Bellatrix,
-Capella and Deneb.  ``register_fork`` installs the batched attestation
-message preparation (``ops/att_prep.py``) on every fork class; the JAX
-package's tracing and DAS installs and its markdown-compiled ladder are
-not carried.
+Capella, Deneb and EIP-7594.  ``register_fork`` installs the batched
+attestation message preparation (``ops/att_prep.py``) on every fork
+class.  The JAX package's tracing install and its markdown-compiled
+ladder are not carried; what its DAS install does, the EIP-7594 spec's
+own methods do (``forks/eip7594.py``).
 """
 from typing import Dict, Optional, Tuple
 
@@ -26,7 +27,7 @@ def register_fork(name):
 
 def fork_registry() -> Dict[str, type]:
     if not _REGISTRY:
-        from . import phase0, altair, bellatrix, capella, deneb  # noqa: F401
+        from . import phase0, altair, bellatrix, capella, deneb, eip7594  # noqa: F401
     return dict(_REGISTRY)
 
 

@@ -11,7 +11,9 @@ flag-based epoch accounting), ``specs/altair/bls.md``
 :class:`Phase0Spec`; only the Altair deltas live here.
 
 The light-client and sync-duty mixins of the JAX package are not carried
-(neither changes a ``BeaconState`` or ``BeaconBlock`` root).  Epoch
+(neither changes a ``BeaconState`` or ``BeaconBlock`` root), but for the
+light-client mixin's fork-version ladder, ``compute_fork_version``, which
+the EIP-7594 runtime extends.  Epoch
 processing goes through the port's engine first (``ops/epoch_kernels.py``:
 K14 for the inactivity scores, K13 for the flag and inactivity deltas,
 K11/K12 as in phase0) and falls to the spec loops below.
@@ -499,6 +501,22 @@ class AltairSpec(Phase0Spec):
         raise AttributeError("phase0 only (replaced by participation flags)")
 
     # -- fork upgrade (fork.md) --------------------------------------------------------
+
+    def compute_fork_version(self, epoch):
+        """Fork version schedule (``specs/altair/fork.md`` pattern),
+        walking the configured fork ladder newest-first.  In the JAX
+        package it belongs to the light-client mixin
+        (``forks/light_client.py``); the port carries no such mixin yet,
+        so it sits here and moves there when the mixin is ported."""
+        ladder = (("DENEB_FORK_EPOCH", "DENEB_FORK_VERSION"),
+                  ("CAPELLA_FORK_EPOCH", "CAPELLA_FORK_VERSION"),
+                  ("BELLATRIX_FORK_EPOCH", "BELLATRIX_FORK_VERSION"),
+                  ("ALTAIR_FORK_EPOCH", "ALTAIR_FORK_VERSION"))
+        for epoch_name, version_name in ladder:
+            fork_epoch = getattr(self.config, epoch_name, None)
+            if fork_epoch is not None and epoch >= fork_epoch:
+                return getattr(self.config, version_name)
+        return self.config.GENESIS_FORK_VERSION
 
     def translate_participation(self, post, pending_attestations):
         """fork.md: the flags of the pending phase0 attestations, ORed into

@@ -16,6 +16,10 @@ card for the DAS engine's batched recovery.  This host ``fft_field``
 stays the spec path (``compute_cells`` uses it, as in the JAX package).
 MSMs go through ``kzg.g1_lincomb`` (K7/K8 under the torch backend);
 ``g2_lincomb`` stays on the oracle.
+
+The EIP-7594 runtime (``forks/eip7594.py``) is its caller: its cell
+proofs and their single checks, its polynomial ring and its spec loop
+(``verify_cell_proof_batch_loop``) delegate here.
 """
 from typing import Sequence, Tuple
 

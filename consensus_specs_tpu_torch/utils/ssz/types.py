@@ -6,10 +6,12 @@ through ``sequence_items``, commits through ``replace_basic_items`` and
 rides along ``Container.copy``.  Lists and vectors of uint8-uint64 and
 of fixed-size containers (the validator registry) decode and pack column
 by column through numpy, with the values of the element-by-element
-path.  A from-scratch equivalent of the reference's ``remerkleable``
-dependency (reference: ``tests/core/pyspec/eth2spec/utils/ssz/
-ssz_typing.py`` re-exports; normative rules in
-``ssz/simple-serialize.md``). Provides:
+path; a container whose fields are all immutable leaves (a
+``Validator``) copies, and coerces into another fork's class of the same
+field types, as one dict update that keeps its cached root.  A
+from-scratch equivalent of the reference's ``remerkleable`` dependency
+(reference: ``tests/core/pyspec/eth2spec/utils/ssz/ssz_typing.py``
+re-exports; normative rules in ``ssz/simple-serialize.md``). Provides:
 
   basic:      uint8/16/32/64/128/256, boolean
   bytes:      ByteVector[N] (Bytes1/4/20/32/48/96 aliases), ByteList[LIMIT]
@@ -313,6 +315,40 @@ def _immutable(typ) -> bool:
     return issubclass(typ, (BasicValue, ByteVectorBase, ByteListBase))
 
 
+_FLAT: Dict[type, bool] = {}
+
+
+def _flat(typ) -> bool:
+    """``typ`` is a container whose every field is an immutable leaf (a
+    ``Validator``): a copy of one shares its field values and its cached
+    root, so it is one dict update (cached per class)."""
+    flat = _FLAT.get(typ)
+    if flat is None:
+        flat = _FLAT[typ] = isinstance(typ, type) and issubclass(typ, Container) and all(
+            immutable for _, _, _, immutable in typ._plan()[0])
+    return flat
+
+
+def _flat_copies(values, cls, parent):
+    """Copies of the flat containers ``values`` as ``cls`` (each of ``cls``
+    or of a class with the same field types, so the same root), owned by
+    ``parent`` at their indices; None when one is of another class."""
+    ref = weakref.ref(parent)
+    new_ = object.__new__
+    fields = cls._fields
+    out = []
+    for i, v in enumerate(values):
+        t = type(v)
+        if t is not cls and not (_flat(t) and t._fields == fields):
+            return None
+        c = new_(cls)
+        d = c.__dict__
+        d.update(v.__dict__)
+        d["_owner"] = (ref, i)
+        out.append(c)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # bitfields
 # ---------------------------------------------------------------------------
@@ -529,8 +565,11 @@ class _SequenceBase(SSZValue):
         return new
 
     def _copy_items_into(self, new) -> None:
-        if _immutable(type(self).elem_type):
+        et = type(self).elem_type
+        if _immutable(et):
             new._items = list(self._items)
+        elif _flat(et):
+            new._items = _flat_copies(self._items, et, new)
         else:
             new._items = [x.copy() for x in self._items]
             for i, x in enumerate(new._items):
@@ -539,6 +578,10 @@ class _SequenceBase(SSZValue):
 
     def _coerce_items(self, values):
         et = type(self).elem_type
+        if _flat(et) and isinstance(values, (list, tuple)):
+            items = _flat_copies(values, et, self)
+            if items is not None:
+                return items
         items = [et.coerce(v) for v in values]
         for i, v in enumerate(items):
             _set_owner(v, self, i)
@@ -704,6 +747,8 @@ class _SequenceBase(SSZValue):
         if issubclass(et, BasicValue):
             return _pack_basic(self._items, et)
         if et.is_fixed_size():
+            if _flat(et) and self._items:
+                return et._serialize_many(self._items)
             return b"".join(x.serialize() for x in self._items)
         parts = [x.serialize() for x in self._items]
         offset = OFFSET_BYTE_LENGTH * len(parts)
@@ -1066,6 +1111,27 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         return out
 
     @classmethod
+    def _serialize_many(cls, items) -> bytes:
+        """Fixed-size flat elements of one List or Vector (every field an
+        immutable leaf) serialized field by field over all of them (uint
+        fields through numpy, byte vectors joined) into one row each: the
+        same bytes as one ``serialize`` per element."""
+        fields, size = cls._plan()
+        n = len(items)
+        rows = np.empty((n, size), dtype=np.uint8)
+        pos = 0
+        for fname, ftype, fsize, _ in fields:
+            vals = [getattr(x, fname) for x in items]
+            if issubclass(ftype, BasicValue) and fsize <= 8:
+                col = np.fromiter(vals, dtype=np.uint64, count=n).astype(f"<u{fsize}")
+            else:
+                col = np.frombuffer(b"".join(v if isinstance(v, bytes) else v.serialize()
+                                             for v in vals), dtype=np.uint8)
+            rows[:, pos:pos + fsize] = col.view(np.uint8).reshape(n, fsize)
+            pos += fsize
+        return rows.tobytes()
+
+    @classmethod
     def decode_bytes(cls, data: bytes):
         fields, fixed_total = cls._plan()
         if len(data) < fixed_total:
@@ -1126,6 +1192,12 @@ class Container(SSZValue, metaclass=_ContainerMeta):
         return root
 
     def copy(self):
+        if _flat(type(self)):
+            # every field an immutable leaf: shared, and so is the root
+            new = object.__new__(type(self))
+            new.__dict__.update(self.__dict__)
+            new.__dict__.pop("_owner", None)
+            return new
         # A state carrying a column store (state/arrays.py) commits its
         # pending column writes before the field snapshot, so the copy's
         # SSZ content matches, and hands the store's columns to the copy
