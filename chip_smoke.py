@@ -2728,6 +2728,7 @@ def signed_body(spec, dry, sks, pks, proposer) -> dict:
     sync = spec.SyncAggregate(sync_committee_bits=bits,
                               sync_committee_signature=O.Sign(sync_sk, sync_root))
     return {"atts": atts, "randao": randao, "sync": sync, "bits": bits,
+            "committees": committees,
             "n_keys": sum(len(m) for m in committees.values()) + sum(bits) + 2,
             "comm_s": t_comm, "sign_s": time.perf_counter() - t0}
 
@@ -2743,7 +2744,8 @@ def proposer_signer(spec, dry, sks, proposer):
     return signed
 
 
-def card_transition(torch, spec, state, signed_block, stages, within=None, copy=True) -> dict:
+def card_transition(torch, spec, state, signed_block, stages, within=None, copy=True,
+                    run=None) -> dict:
     """``state_transition`` of a copy of ``state`` on the card in a batch
     scope of its own, the verify memo cleared, every K1-K4 call and the
     first K5 call of every row count recorded, the ``stages`` (spec
@@ -2751,14 +2753,16 @@ def card_transition(torch, spec, state, signed_block, stages, within=None, copy=
     call made in the same scope before the transition (Deneb's data
     availability check, as ``on_block`` composes the two); without
     ``copy``, ``state`` itself is transitioned (a caller that holds it no
-    longer).  Returns the
+    longer).  ``run``: a call made in the scope instead of the two (fork
+    choice's ``on_block``; the post-state is then the caller's to find).
+    Returns the
     post-state, the batch, the launches, the recorders, the stage ms and
     the total ms."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import bls_torch, sha256
     from consensus_specs_tpu_torch.utils import bls
     clock = StageClock()
-    post = state.copy() if copy else state
+    post = None if run is not None else state.copy() if copy else state
     for name in stages:
         clock.wrap(spec, name)
     clock.wrap(bls.DeferredBatch, "flush")
@@ -2773,9 +2777,12 @@ def card_transition(torch, spec, state, signed_block, stages, within=None, copy=
     t0 = time.perf_counter()
     try:
         with bls.scoped_batch(bls.DeferredBatch()) as batch:
-            if within is not None:
-                within()
-            spec.state_transition(post, signed_block)
+            if run is not None:
+                run()
+            else:
+                if within is not None:
+                    within()
+                spec.state_transition(post, signed_block)
         torch.cuda.synchronize()
     finally:
         for r in reversed(recorders):
@@ -2804,9 +2811,11 @@ def hold_new_shapes(torch, recorders, held: set, tag: str) -> dict:
         r.calls = [r.calls[i] for i in keep]
         r.kwargs = [r.kwargs[i] for i in keep]
     err = {r.name: r.hold(plain[r.name]) for r in recorders}
-    print(f"{tag}: every call of {[r.name for r in recorders]} (K5: the first of every row "
-          f"count; K4's GT values too) at a shape no earlier phase held, held against its plain "
-          f"version ({ {r.name: r.count for r in recorders} } calls; at shapes held before: "
+    print(f"{tag}: every recorded call of {[r.name for r in recorders]} (K5, and the recorders "
+          f"made with first_of_shape: the first of every shape; K4's GT values too) at a shape "
+          f"no earlier phase held, held against its plain version "
+          f"({ {r.name: len(r.calls) for r in recorders} } held of "
+          f"{ {r.name: r.count for r in recorders} } calls; recorded at shapes held before: "
           f"{skipped})")
     return err
 
@@ -3835,30 +3844,326 @@ def altered_cell(cell: bytes) -> bytes:
     return cell[:32] + ((x + 1) % BLS_MODULUS).to_bytes(32, "big") + cell[64:]
 
 
+class timed_calls:
+    """While active, every call of the method ``cls.name`` is timed: ``ms``
+    holds one wall-clock entry a call, in order."""
+
+    def __init__(self, cls, name):
+        self.cls, self.name, self.ms = cls, name, []
+
+    def __enter__(self):
+        self.saved = self.cls.__dict__.get(self.name)
+        fn = getattr(self.cls, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            delattr(self.cls, self.name)
+        else:
+            setattr(self.cls, self.name, self.saved)
+
+
+def forkchoice_store(torch, card, spec, state, block) -> dict:
+    """Phase 21's fork-choice store on its pre-state ``state`` (slot 0):
+    the registry columns extracted once on ``state`` (its copies share
+    them copy-on-write, so the engine's first balance pass extracts
+    nothing); the anchor block, ``state``'s header as a block with its
+    ``state_root`` the state's root, whose root must be ``block``'s
+    parent root; ``get_forkchoice_store`` (two state copies, the engine
+    attached with one node); ``on_tick`` to the start of ``block``'s slot."""
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import ssz
+    state_arrays.reset_stats()
+    t0 = time.perf_counter()
+    state_arrays.of(state).registry()
+    extract_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state_root = ssz.hash_tree_root(state)
+    root_s = time.perf_counter() - t0
+    hdr = state.latest_block_header
+    anchor = spec.BeaconBlock(slot=hdr.slot, proposer_index=hdr.proposer_index,
+                              parent_root=hdr.parent_root, state_root=state_root,
+                              body=spec.BeaconBlockBody())
+    anchor_root = bytes(ssz.hash_tree_root(anchor))
+    check(anchor_root == bytes(block.parent_root),
+          "eip7594: the anchor block's root is not the block's parent root")
+    with timed_calls(type(state), "copy") as copies:
+        t0 = time.perf_counter()
+        store = spec.get_forkchoice_store(state, anchor)
+        store_s = time.perf_counter() - t0
+    tick = int(store.genesis_time) + int(block.slot) * int(spec.config.SECONDS_PER_SLOT)
+    spec.on_tick(store, tick)
+    sa = state_arrays.stats()
+    check(len(copies.ms) == 2 and store._fc_proto is not None and store._fc_proto._n == 1
+          and int(spec.get_current_slot(store)) == int(block.slot)
+          and sa.get("extracts", 0) <= 1,
+          f"eip7594: the store: {len(copies.ms)} copies, slot {spec.get_current_slot(store)}, "
+          f"column store {sa}")
+    print(f"eip7594 fork-choice store on the {len(state.validators)}-validator pre-state: "
+          f"registry columns extracted ({sa.get('extracts', 0)} extraction) {extract_s:.3f} s, "
+          f"the state's root {root_s:.3f} s, "
+          f"get_forkchoice_store {store_s:.3f} s (two state copies "
+          f"{', '.join(f'{m / 1e3:.3f}' for m in copies.ms)} s, their column stores forked "
+          f"{sa.get('forks', 0)} times); anchor {anchor_root.hex()[:16]} = the block's parent; "
+          f"on_tick to slot {int(block.slot)} (host) on {card}")
+    return {"store": store, "anchor_root": anchor_root, "extract_s": extract_s,
+            "root_s": root_s, "store_s": store_s, "copy_ms": copies.ms}
+
+
+def forkchoice_votes(torch, card, spec, store, sblock, anchor_state, parts, sks, held: set,
+                     root: bytes, anchor_root: bytes) -> dict:
+    """Phase 21 after ``on_block``: the block's attestations through
+    ``on_attestation(is_from_block=True)`` twice.  First as a client
+    following the head does it, the verify memo kept: ``on_block``'s flush
+    answered every signature, so no kernel launches.  Then with the memo
+    cleared, each verified alone outside any scope as an attestation
+    arriving over gossip is (one K1, K3 and K4 launch each; the latest
+    messages stay as the first pass wrote them).  ``get_head`` (first:
+    the engine's balance pass over the registry, no column extracted;
+    then warm) must be the block's root, answered by the engine;
+    ``get_weight`` of the anchor and the block against the smoke's own
+    sums: the voters' effective balances where active and not slashed,
+    read from the anchor state's SSZ validators (and again from its
+    columns), and the proposer score from the active total where the
+    boost descends from the node; a double vote of 8 members of one committee, signed by
+    their keys, through ``on_attester_slashing`` (two verifies): the
+    anchor's weight falls by their balances, the head stays; ``on_tick``
+    to the next slot: the boost is gone, both weights fall by the score.
+    Every K1, K3 and K4 call at a shape no earlier phase held is held
+    against its plain version (the first call of each shape)."""
+    import numpy as np
+    from consensus_specs_tpu_torch import _build
+    from consensus_specs_tpu_torch.forkchoice import proto_array
+    from consensus_specs_tpu_torch.ops import bls_torch
+    from consensus_specs_tpu_torch.ops.bls12_381 import ciphersuite as O
+    from consensus_specs_tpu_torch.ops.bls12_381.fields import R_ORDER
+    from consensus_specs_tpu_torch.state import arrays as state_arrays
+    from consensus_specs_tpu_torch.utils import bls
+
+    atts = list(sblock.message.body.attestations)
+    names = ("g1_aggregate_scale", "hash_to_g2", "pairing_check")
+    recs = [CallRecorder(torch, bls_torch, k, first_of_shape=True) for k in names]
+    for r in recs:
+        r.__enter__()
+    try:
+        # -- on_attestation with the memo kept: the block's flush answers -----------
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in atts:
+            spec.on_attestation(store, a, is_from_block=True)
+        torch.cuda.synchronize()
+        kept_ms = (time.perf_counter() - t0) * 1e3
+        kept_launches = {k: _build.launches[k] for k in names}
+        check(all(v == 0 for v in kept_launches.values()),
+              f"eip7594: {len(atts)} on_attestations after on_block's flush launched "
+              f"{kept_launches}, expected the verify memo to answer each")
+        voters = np.unique(np.concatenate([np.asarray(m, dtype=np.int64)
+                                           for m in parts["committees"].values()]))
+        msgs = store.latest_messages
+        check(len(msgs) == voters.size == sum(len(m) for m in parts["committees"].values())
+              and set(msgs) == set(voters.tolist())
+              and all(bytes(m.root) == anchor_root for m in msgs.values()),
+              f"eip7594: {len(msgs)} latest messages for {voters.size} voters, or one not on "
+              f"the anchor")
+        votes_before = dict(msgs)
+        print(f"eip7594 on_attestation x{len(atts)} (is_from_block, the verify memo kept from "
+              f"on_block's flush): {voters.size} votes, every one on the anchor; launches "
+              f"{kept_launches}")
+        print(f"time eip7594 on_attestation, following the head (memo kept, no launch): "
+              f"{kept_ms:.2f} ms for {len(atts)}, {kept_ms / len(atts):.2f} a call (host) on "
+              f"{card}")
+
+        # -- on_attestation with the memo cleared: each verified alone ----------------
+        clock = StageClock(sync=torch.cuda.synchronize)
+        for k in names + ("_decompress_g2",):
+            clock.wrap(bls_torch, k)
+        bls.clear_verify_memo()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        try:
+            t0 = time.perf_counter()
+            for a in atts:
+                spec.on_attestation(store, a, is_from_block=True)
+            torch.cuda.synchronize()
+            att_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            clock.restore()
+        att_launches = {k: _build.launches[k] for k in names}
+        device_ms = sum(clock.ms[k] for k in names)
+        check(all(att_launches[k] == len(atts) for k in names),
+              f"eip7594: {len(atts)} on_attestations made {att_launches}, expected one launch "
+              f"of each a call")
+        check(store.latest_messages == votes_before,
+              "eip7594: the second pass of on_attestation changed a latest message")
+        print(f"eip7594 on_attestation x{len(atts)} (is_from_block, memo cleared: each verified "
+              f"alone, as a gossip attestation is): launches {att_launches}")
+        print(f"time eip7594 on_attestation, memo cleared (a gossip attestation verified alone): "
+              f"{att_ms:.2f} ms for {len(atts)}, {att_ms / len(atts):.2f} a call = device (K1, K3, K4 wrappers, synchronized) "
+              f"{device_ms:.2f} + _decompress_g2 {clock.ms['_decompress_g2']:.2f} + the rest "
+              f"of the host {att_ms - device_ms - clock.ms['_decompress_g2']:.2f} on {card}")
+
+        # -- the head and the weights ---------------------------------------------------
+        proto_array.reset_stats()
+        state_arrays.reset_stats()
+        t0 = time.perf_counter()
+        head = bytes(spec.get_head(store))
+        head_first_ms = (time.perf_counter() - t0) * 1e3
+        st, sa = proto_array.stats(), state_arrays.stats()
+        check(head == root and st["proto_heads"] == 1 and st["spec_heads"] == 0
+              and st["balance_passes"] == 1 and st["vote_deltas"] == voters.size
+              and st["fallbacks"] == 0 and sa.get("extracts", 0) == 0,
+              f"eip7594: get_head {head.hex()[:16]} (the block {root.hex()[:16]}), engine "
+              f"{st}, column store {sa}")
+        t0 = time.perf_counter()
+        head = bytes(spec.get_head(store))
+        head_warm_ms = (time.perf_counter() - t0) * 1e3
+        check(head == root and proto_array.stats()["proto_heads"] == 2
+              and proto_array.stats()["balance_passes"] == 1,
+              "eip7594: the warm get_head")
+        reg = state_arrays.of(anchor_state).registry()
+        epoch = np.uint64(int(spec.get_current_epoch(anchor_state)))
+        active = (reg["act"] <= epoch) & (epoch < reg["ext"])
+        eff = reg["eff"].astype(np.int64)
+        total = max(int(spec.EFFECTIVE_BALANCE_INCREMENT), int(eff[active].sum()))
+        score = total // int(spec.SLOTS_PER_EPOCH) * int(spec.config.PROPOSER_SCORE_BOOST) // 100
+        weigh = np.where(active & ~reg["sl"], eff, 0)
+        # the voters' weights from the SSZ validators, apart from the columns
+        t0 = time.perf_counter()
+        ssz_weigh = {}
+        for v in voters.tolist():
+            val = anchor_state.validators[v]
+            ok = (int(val.activation_epoch) <= int(epoch) < int(val.exit_epoch)
+                  and not bool(val.slashed))
+            ssz_weigh[v] = int(val.effective_balance) if ok else 0
+        ssz_s = time.perf_counter() - t0
+        vote_sum = sum(ssz_weigh.values())
+        check(vote_sum == int(weigh[voters].sum()),
+              f"eip7594: the voters' weight {vote_sum} from the SSZ validators, "
+              f"{int(weigh[voters].sum())} from the columns")
+
+        def weights():
+            return int(spec.get_weight(store, anchor_root)), int(spec.get_weight(store, root))
+
+        check(int(spec.get_proposer_score(store)) == score,
+              f"eip7594: get_proposer_score {int(spec.get_proposer_score(store))}, numpy {score}")
+        w_boost = weights()
+        check(w_boost == (vote_sum + score, score),
+              f"eip7594: weights {w_boost}, numpy {(vote_sum + score, score)}")
+        print(f"eip7594 get_head = the block, answered by the proto-array engine (its balance "
+              f"pass over {reg.size} lanes, no column extracted): first {head_first_ms:.2f} ms, "
+              f"warm {head_warm_ms:.2f} ms (host) on {card}; get_weight anchor {w_boost[0]} = "
+              f"{voters.size} votes {vote_sum} + proposer score {score}, block {w_boost[1]} = "
+              f"the score, each equal to the smoke's sums (the votes read from the SSZ "
+              f"validators in {ssz_s:.3f} s and equal to the column sum)")
+
+        # -- a double vote through on_attester_slashing -----------------------------------
+        (slot, index), members = next(iter(parts["committees"].items()))
+        eight = sorted(int(v) for v in members)[:8]
+        data1 = next(a.data for a in atts
+                     if int(a.data.slot) == slot and int(a.data.index) == index)
+        data2 = data1.copy()
+        data2.beacon_block_root = root
+        domain = spec.get_domain(anchor_state, spec.DOMAIN_BEACON_ATTESTER,
+                                 data1.target.epoch)
+        sk = sum(sks[v % len(sks)] for v in eight) % R_ORDER
+        pair = [spec.IndexedAttestation(
+            attesting_indices=eight, data=d,
+            signature=O.Sign(sk, spec.compute_signing_root(d, domain))) for d in (data1, data2)]
+        slashing = spec.AttesterSlashing(attestation_1=pair[0], attestation_2=pair[1])
+        bls.clear_verify_memo()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec.on_attester_slashing(store, slashing)
+        torch.cuda.synchronize()
+        slash_ms = (time.perf_counter() - t0) * 1e3
+        slash_launches = {k: _build.launches[k] for k in names}
+        lost = sum(ssz_weigh[v] for v in eight)
+        check(lost == int(weigh[eight].sum()),
+              f"eip7594: the slashed voters' weight {lost} from the SSZ validators, "
+              f"{int(weigh[eight].sum())} from the columns")
+        w_slashed = weights()
+        check(slash_launches == dict.fromkeys(names, 2) and store.equivocating_indices == set(eight)
+              and w_slashed == (vote_sum - lost + score, score)
+              and bytes(spec.get_head(store)) == root,
+              f"eip7594: the slashing: launches {slash_launches}, equivocating "
+              f"{sorted(store.equivocating_indices)}, weights {w_slashed}, numpy "
+              f"{(vote_sum - lost + score, score)}")
+        spec.on_tick(store, int(store.genesis_time)
+                     + (int(sblock.message.slot) + 1) * int(spec.config.SECONDS_PER_SLOT))
+        w_tick = weights()
+        st = proto_array.stats()
+        check(bytes(store.proposer_boost_root) == b"\x00" * 32
+              and w_tick == (vote_sum - lost, 0) and bytes(spec.get_head(store)) == root
+              and st["spec_heads"] == st["spec_weights"] == st["fallbacks"] == 0,
+              f"eip7594: after the tick: weights {w_tick}, numpy {(vote_sum - lost, 0)}, "
+              f"engine {st}")
+        print(f"eip7594 on_attester_slashing: a double vote of validators {eight} (slot {slot}, "
+              f"committee {index}) equivocating; launches {slash_launches}; {slash_ms:.2f} ms on "
+              f"{card}; anchor weight {w_boost[0]} -> {w_slashed[0]} (their balances {lost}), "
+              f"head unchanged; on_tick to slot {int(sblock.message.slot) + 1}: the boost gone, "
+              f"weights {w_tick}; every read the engine's ({st})")
+    finally:
+        for r in reversed(recs):
+            r.__exit__()
+    firsts = {r.name: {str(r.shapes(a)): a for a, _ in r.calls} for r in recs}
+    err = hold_new_shapes(torch, recs, held, "eip7594 on_attestation and on_attester_slashing")
+    shape_ms = {name: {sh: queued_ms(torch, lambda a=a, fn=getattr(bls_torch, name): fn(*a), 10)
+                       for sh, a in calls.items()} for name, calls in firsts.items()}
+    print("time g1_aggregate_scale, hash_to_g2 and pairing_check at the fork-choice verifies' "
+          "shapes (ms per call queued ahead): " + "; ".join(
+              f"{k} {sh} {v:.4f}" for k, d in shape_ms.items() for sh, v in d.items())
+          + f" on {card}")
+    return {"err": err, "shape_ms": shape_ms, "att_launches": att_launches,
+            "kept_launches": kept_launches, "slash_launches": slash_launches,
+            "kept_ms": kept_ms, "att_ms": att_ms, "att_device_ms": device_ms,
+            "att_decompress_ms": clock.ms["_decompress_g2"], "votes": int(voters.size),
+            "head_first_ms": head_first_ms, "head_warm_ms": head_warm_ms,
+            "slash_ms": slash_ms, "weights": [w_boost, w_slashed, w_tick],
+            "shapes": {r.name: sorted(r.by_shape) for r in recs}}
+
+
 def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob: dict,
                         das: dict, held: set) -> dict:
-    """Phase 21: a mainnet EIP-7594 block through ``state_transition`` on
-    ``dev``: ``up``'s state (:func:`eip7594_upgrade` of phase 19's Deneb
-    state), a block at slot 3 with phase 19's content (128 attestations,
-    the sync aggregate, the proposer signature and the randao reveal
-    signed under the EIP-7594 fork version; the same 16 withdrawals;
-    phase 19's 16 BLS-to-execution changes as they are, signed under the
-    genesis domain; phase 8's six commitments with their blob transaction
-    and blob gas: 147 RLC items).  ``is_data_available`` samples
-    ``SAMPLES_PER_SLOT`` columns of each blob (its
-    ``retrieve_cells_and_proofs`` hands back phase 9's 8 columns, cells
-    and proofs) in one batch scope with ``state_transition``: each blob's
-    cell batch defers its two pairs, and the 147 items and the six checks
-    pass as one product pairing, one K4 launch of one group of 160 pairs.
-    Then: a withheld blob answers False with no launch; outside a block, a
-    scope holding only ``is_data_available`` with one element of one cell
-    of blob 2 changed fails its flush, ``last_pairing_results`` naming that
-    blob's check alone; the 8 columns as ``DataColumnSidecar``s around the
-    block's signed header verify (one K4 launch of 2 pairs each, outside a
-    scope); blob 0 through ``recover_polynomial`` from phase 9's kept half
-    equals its extended cells (4 K9 launches, each held).  Every K1-K5,
-    K7 and K8 call at a shape no earlier phase held (``held``) is held
-    against its plain version (K4's GT values too; K7 and K8 by shape,
+    """Phase 21: a mainnet EIP-7594 block through fork choice's
+    ``on_block`` on ``dev``: ``up``'s state (:func:`eip7594_upgrade` of
+    phase 19's Deneb state; its header takes this fork's empty body root,
+    so that it is an EIP-7594 anchor block), a block at slot 3 with phase
+    19's content (128 attestations, the sync aggregate, the proposer
+    signature and the randao reveal signed under the EIP-7594 fork
+    version; the same 16 withdrawals; phase 19's 16 BLS-to-execution
+    changes as they are, signed under the genesis domain; phase 8's six
+    commitments with their blob transaction and blob gas: 147 RLC items).
+    The store is built on the pre-state and ticked to slot 3
+    (:func:`forkchoice_store`).  First, with a blob withheld, ``on_block``
+    raises with no launch and the store as it was.  Then ``on_block``
+    samples ``SAMPLES_PER_SLOT`` columns of each blob through
+    ``is_data_available`` (its ``retrieve_cells_and_proofs`` hands back
+    phase 9's 8 columns, cells and proofs) in its one batch scope with
+    ``state_transition`` (joined to this phase's ``scoped_batch``): each
+    blob's cell batch defers its two pairs, and the 147 items and the six
+    checks pass as one product pairing, one K4 launch of one group of 160
+    pairs; the block is stored, timely, with the proposer boost.  The
+    block's attestations, the head, the weights, a slashing and a tick
+    follow (:func:`forkchoice_votes`).  Then: a withheld blob answers
+    False with no launch; outside a block, a scope holding only
+    ``is_data_available`` with one element of one cell of blob 2 changed
+    fails its flush, ``last_pairing_results`` naming that blob's check
+    alone; the 8 columns as ``DataColumnSidecar``s around the block's
+    signed header verify (one K4 launch of 2 pairs each, outside a scope);
+    blob 0 through ``recover_polynomial`` from phase 9's kept half equals
+    its extended cells (4 K9 launches, each held).  Every K1-K5, K7 and K8
+    call at a shape no earlier phase held (``held``) is held against its
+    plain version (K4's GT values too; K7 and K8 by shape,
     :func:`hold_msm_by_shape`)."""
     from consensus_specs_tpu_torch import _build
     from consensus_specs_tpu_torch.ops import bls_torch, fr_fft, msm
@@ -3870,6 +4175,9 @@ def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob
     check(len(sampling) == len(cs) and all(ids == cols for ids, _, _ in sampling)
           and len(cols) == int(spec.SAMPLES_PER_SLOT),
           f"eip7594: phase 9's sampling must give {int(spec.SAMPLES_PER_SLOT)} columns a blob")
+    # the registry state's header carries the phase0 empty body's root; with
+    # this fork's, the header is an EIP-7594 block: the store's anchor
+    state.latest_block_header.body_root = ssz.hash_tree_root(spec.BeaconBlockBody())
     dry = state.copy()
     spec.process_slots(dry, BLOCK_SLOT)
     proposer = int(spec.get_beacon_proposer_index(dry))
@@ -3908,36 +4216,60 @@ def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob
     print(f"eip7594 dry run on a copy: process_block + root {time.perf_counter() - t0:.2f} s")
     sblock = signed(block.copy())
 
-    # -- is_data_available and the transition in one scope on the card ------------
+    # -- the fork-choice store on the pre-state ------------------------------------
     engine, noop = RecordingEngine(), spec.EXECUTION_ENGINE
     spec.EXECUTION_ENGINE = engine
-    spec.retrieve_cells_and_proofs = lambda root: sampling
-    root = ssz.hash_tree_root(block)
-    avail = {}
+    root = bytes(ssz.hash_tree_root(block))
+    fc = forkchoice_store(torch, card, spec, state, block)
+    store, anchor_root = fc["store"], fc["anchor_root"]
+    del state
+    anchor_state = store.block_states[anchor_root]
+    nodes = lambda: (len(store.blocks), len(store.block_states), store._fc_proto._n)  # noqa: E731
 
-    def availability():
-        clock = StageClock(sync=torch.cuda.synchronize)
-        for name in ("expand_windows", "msm_core"):
-            clock.wrap(msm, name)
-        t0 = time.perf_counter()
+    # -- a withheld blob: on_block refuses the block before any pairing --------------
+    spec.retrieve_cells_and_proofs = lambda r: sampling[:WITHHELD]
+    before = nodes()
+    bls.clear_verify_memo()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with bls.scoped_batch(bls.DeferredBatch()) as wb:
         try:
-            avail["ok"] = spec.is_data_available(root, block.body.blob_kzg_commitments)
-        finally:
-            clock.restore()
-        avail["ms"] = (time.perf_counter() - t0) * 1e3
-        avail["device_ms"] = sum(clock.ms.values())
+            spec.on_block(store, sblock)
+            fail(f"eip7594: on_block passed with {WITHHELD} of {len(cs)} blobs sampled")
+        except AssertionError:
+            pass
+    torch.cuda.synchronize()
+    withheld_ms = (time.perf_counter() - t0) * 1e3
+    refused = {k: _build.launches[k] for k in ("pairing_check", "expand_windows", "g1_msm")}
+    check(nodes() == before == (1, 1, 1) and not any(refused.values()) and wb.pairings == 0
+          and wb.items == [] and wb.pairing_checks == [] and root not in store.blocks,
+          f"eip7594: the withheld block changed the store or launched: {nodes()}, {refused}, "
+          f"{wb.pairings} pairings")
+    print(f"eip7594 on_block with {WITHHELD} of {len(cs)} blobs sampled: AssertionError with no "
+          f"launch ({refused}) and no pairing; store.blocks, block_states and the engine's nodes "
+          f"{nodes()} as they were; {withheld_ms:.2f} ms (the pre-state copy, host) on {card}")
 
-    with CallRecorder(torch, msm, "expand_windows") as k7, \
-            CallRecorder(torch, msm, "msm_core") as k8:
-        tr = card_transition(torch, spec, state, sblock,
-                             ("process_slots", "process_block", "process_execution_payload",
-                              "process_attestation"), within=availability, copy=False)
+    # -- on_block: is_data_available and the transition in one scope on the card ---
+    spec.retrieve_cells_and_proofs = lambda r: sampling
+    dev_clock = StageClock(sync=torch.cuda.synchronize)
+    for name in ("expand_windows", "msm_core"):
+        dev_clock.wrap(msm, name)
+    try:
+        with CallRecorder(torch, msm, "expand_windows") as k7, \
+                CallRecorder(torch, msm, "msm_core") as k8, \
+                timed_calls(type(anchor_state), "copy") as copies:
+            tr = card_transition(torch, spec, None, sblock,
+                                 ("is_data_available", "state_transition", "process_slots",
+                                  "process_block", "process_execution_payload",
+                                  "process_attestation", "compute_pulled_up_tip"),
+                                 run=lambda: spec.on_block(store, sblock))
+    finally:
+        dev_clock.restore()
     batch, launches, ms, t_total = tr["batch"], tr["launches"], tr["ms"], tr["total_ms"]
-    post = tr["post"]
+    post = store.block_states[root]
     path_kernels = KERNELS + ("hash64", "expand_windows", "g1_msm")
     k4_args = tr["recorders"][KERNELS.index("pairing_check")].calls[0][0]
     pairs = items + 1 + 2 * len(cs)
-    check(avail["ok"] is True, "eip7594: is_data_available must answer True inside the scope")
     check(batch.pairings == 1 and launches["pairing_check"] == 1,
           f"eip7594: expected one product pairing and one K4 launch for the block and its "
           f"blobs' cells, got {batch.pairings} pairings, {launches['pairing_check']} K4 launches")
@@ -3957,27 +4289,41 @@ def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob
           and int(post.latest_execution_payload_header.blob_gas_used) == len(cs) * GAS_PER_BLOB
           and int(post.next_withdrawal_index) == WITHDRAWALS,
           "eip7594: the post-state's fork, payload header or withdrawal cursor")
+    check(nodes() == (2, 2, 2) and bytes(store.proposer_boost_root) == root
+          and store.block_timeliness[root] is True
+          and bytes(store.blocks[root].parent_root) == anchor_root,
+          f"eip7594: on_block's store: nodes {nodes()}, boost "
+          f"{bytes(store.proposer_boost_root).hex()[:16]}, timely "
+          f"{store.block_timeliness.get(root)}")
+    check(len(copies.ms) == 2, f"eip7594: on_block copied {len(copies.ms)} states, expected 2 "
+                               f"(the pre-state, compute_pulled_up_tip's)")
     rest = ms["process_block"] - sum(ms[k] for k in (
         "process_execution_payload", "process_attestation", "flush"))
-    print(f"eip7594: is_data_available and state_transition in one scope passed with "
-          f"{batch.pairings} product pairing: {len(batch.last_results)} items and "
+    on_block_rest = t_total - (copies.ms[0] + ms["is_data_available"] + ms["state_transition"]
+                               + ms["compute_pulled_up_tip"])
+    print(f"eip7594: on_block passed the block (root {root.hex()[:16]}) with {batch.pairings} "
+          f"product pairing: {len(batch.last_results)} items and "
           f"{len(batch.last_pairing_results)} deferred checks (das_cells, one a blob) in one K4 "
-          f"group of {k4_args[0].shape[0]} pairs; the post-state carries fork version "
+          f"group of {k4_args[0].shape[0]} pairs; the store holds it, timely, with the proposer "
+          f"boost; the post-state carries fork version "
           f"{bytes(post.fork.current_version).hex()}; launches "
           f"{ {k: launches[k] for k in path_kernels} }")
-    print(f"time eip7594 is_data_available ({len(cs)} blobs x {len(cols)} cells, deferred): "
-          f"{avail['ms']:.2f} ms = device (K7 and K8 wrappers, synchronized) "
-          f"{avail['device_ms']:.2f} + host {avail['ms'] - avail['device_ms']:.2f} on {card}")
-    print(f"time eip7594 state_transition (validate_result=True): {t_total - avail['ms']:.2f} ms = "
-          f"slots {ms['process_slots']:.2f} + process_execution_payload "
+    print(f"time eip7594 on_block: {t_total:.2f} ms = pre-state copy {copies.ms[0]:.2f} + "
+          f"is_data_available {ms['is_data_available']:.2f} ({len(cs)} blobs x {len(cols)} "
+          f"cells, deferred; device: K7 and K8 wrappers, synchronized, "
+          f"{sum(dev_clock.ms.values()):.2f}) + state_transition {ms['state_transition']:.2f} + "
+          f"compute_pulled_up_tip {ms['compute_pulled_up_tip']:.2f} (its copy "
+          f"{copies.ms[1]:.2f}) + rest {on_block_rest:.2f} on {card}")
+    print(f"time eip7594 state_transition (validate_result=True): {ms['state_transition']:.2f} "
+          f"ms = slots {ms['process_slots']:.2f} + process_execution_payload "
           f"{ms['process_execution_payload']:.2f} + process_attestation x{len(atts)} "
           f"{ms['process_attestation']:.2f} + flush {ms['flush']:.2f} (_decompress_g2 "
           f"{ms['_decompress_g2']:.2f}; {items} items and {len(cs)} cell checks) + rest of "
           f"process_block {rest:.2f} + state-root check and block signature "
-          f"{t_total - avail['ms'] - ms['process_slots'] - ms['process_block']:.2f} on {card}")
+          f"{ms['state_transition'] - ms['process_slots'] - ms['process_block']:.2f} on {card}")
     hashlib_roots.submit("the EIP-7594 block's post-state (the block's state_root)", spec, ssz,
                          post, bytes(block.state_root))
-    del post, tr["post"], state
+    del post
     shapes = {r.name: sorted(r.by_shape) for r in tr["recorders"][:len(KERNELS)] + [k7, k8]}
     err = hold_new_shapes(torch, tr["recorders"], held, "eip7594")
     err.update(hold_msm_by_shape(torch, k7, k8, held, "eip7594"))
@@ -3997,6 +4343,12 @@ def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob
     print("time expand_windows and g1_msm at the eip7594 cell batches' shapes (ms per call "
           "queued ahead): " + "; ".join(f"{k} {sh} {ms:.4f}" for k, v in shape_ms.items()
                                         for sh, ms in v.items()) + f" on {card}")
+
+    # -- the block's attestations, the head, the weights, a slashing, a tick ---------
+    votes = forkchoice_votes(torch, card, spec, store, sblock, anchor_state, parts,
+                             sks, held, root, anchor_root)
+    err.update({k: max(err.get(k, 0), v) for k, v in votes["err"].items()})
+    del anchor_state
 
     # -- a withheld blob; a changed cell outside a block; the sidecars ---------------
     recs = [CallRecorder(torch, bls_torch, "pairing_check"),
@@ -4103,8 +4455,11 @@ def eip7594_block_phase(torch, dev, card, sks, pks, up: dict, dblock: dict, blob
             "sidecar_ms": sidecar_ms, "withheld_launches": withheld,
             "altered_k4_launches": altered_k4, "recover_ms": recover_ms,
             "k9_launches": k9_launches, "k9_shapes": sorted(k9.by_shape),
-            "available_ms": avail["ms"], "available_device_ms": avail["device_ms"],
-            "transition_ms": t_total - avail["ms"], "flush_ms": ms["flush"],
+            "available_ms": ms["is_data_available"],
+            "available_device_ms": sum(dev_clock.ms.values()),
+            "transition_ms": ms["state_transition"], "flush_ms": ms["flush"],
+            "on_block_ms": t_total, "withheld_on_block_ms": withheld_ms,
+            "store": {k: v for k, v in fc.items() if k != "store"}, "votes": votes,
             "upgrade_s": up["upgrade_s"], "cold_s": up["cold_s"],
             "k18_launches": up["k18_launches"], "k18_err": up["k18_err"]}
 
@@ -5719,6 +6074,17 @@ def main(argv=None) -> int:
             e["max_abs_err"] = max(e["max_abs_err"], eblock["err"][e["name"]])
         if e["name"] in eblock["shapes"]:
             e["eip7594_block_shapes"] = eblock["shapes"][e["name"]]
+        if e["name"] in eblock["votes"]["att_launches"]:
+            # fork choice after on_block: 128 on_attestations with the verify
+            # memo kept (no launch), 128 with it cleared, and a slashing
+            e["eip7594_on_attestation_memo_kept_launches"] = \
+                eblock["votes"]["kept_launches"][e["name"]]
+            e["eip7594_on_attestation_memo_cleared_launches"] = \
+                eblock["votes"]["att_launches"][e["name"]]
+            e["eip7594_attester_slashing_launches"] = \
+                eblock["votes"]["slash_launches"][e["name"]]
+            e["eip7594_fork_choice_shapes"] = eblock["votes"]["shapes"][e["name"]]
+            e["eip7594_fork_choice_shape_ms"] = eblock["votes"]["shape_ms"][e["name"]]
     mesh_err["merkle_levels"] = max(mesh_err["merkle_levels"], eblock["k18_err"])
 
     lap("phase 21")

@@ -16,7 +16,9 @@ here.
 Epoch processing goes through the port's engine first, as on Altair:
 ``ops/epoch_kernels.py`` reads the spec's fork lineage and hands K13 the
 Bellatrix inactivity quotient and K12 the Bellatrix slashing multiplier.
-The merge-block checks are plain methods: fork choice is not carried.
+The merge-block checks override fork choice's hook
+(``_on_block_merge_check``, ``forks/fork_choice.py``): ``on_block`` of a
+merge block validates its terminal PoW block.
 """
 from dataclasses import field, make_dataclass
 from typing import Optional
@@ -295,7 +297,8 @@ class BellatrixSpec(OptimisticSyncMixin, AltairSpec):
         assert self.is_valid_terminal_pow_block(pow_block, pow_parent)
 
     def _on_block_merge_check(self, pre_state, block) -> None:
-        """fork-choice.md:266: a merge block's terminal PoW block."""
+        """The hook ``ForkChoiceMixin.on_block`` calls (fork-choice.md:266):
+        a merge block's terminal PoW block."""
         if self.is_merge_transition_block(pre_state, block.body):
             self.validate_merge_block(block)
 

@@ -242,7 +242,8 @@ class CapellaSpec(BellatrixSpec):
             + bytes(address_change.to_execution_address))
 
     def _on_block_merge_check(self, pre_state, block) -> None:
-        """The merge is complete: nothing to validate."""
+        """``ForkChoiceMixin.on_block``'s hook: the merge is complete,
+        nothing to validate."""
 
     # -- fork upgrade (fork.md:77) -------------------------------------------
 

@@ -14,14 +14,13 @@ sources: ``specs/deneb/beacon-chain.md`` (``blob_kzg_commitments`` :118,
 ``specs/deneb/polynomial-commitments.md`` through :mod:`..ops.kzg`.
 Fork inheritance is class inheritance over :class:`CapellaSpec`.
 
-A block's blobs verify through ``is_data_available``: inside a batch
-scope opened around it and ``state_transition`` (as ``on_block``
-composes them), the KZG batch's pairing joins the block's one product
-pairing (``ops/kzg.py``).  The registry updates go through the epoch
-engine first, which caps the activations at
-``MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT`` on this fork.  Fork choice is
-not carried: ``retrieve_blobs_and_proofs``, ``is_data_available`` and
-``_on_block_data_availability_check`` are plain methods.  The
+A block's blobs verify through ``is_data_available``, which fork
+choice's ``on_block`` calls through ``_on_block_data_availability_check``
+(this fork's override of the mixin's hook) in the batch scope it opens
+around ``state_transition``: the KZG batch's pairing joins the block's
+one product pairing (``ops/kzg.py``).  The registry updates go through
+the epoch engine first, which caps the activations at
+``MAX_PER_EPOCH_ACTIVATION_CHURN_LIMIT`` on this fork.  The
 light-client override ``is_valid_light_client_header`` is not carried
 (the port's Altair runtime has no light-client mixin for it to
 override).
@@ -288,7 +287,8 @@ class DenebSpec(CapellaSpec):
         return self.verify_blob_kzg_proof_batch(blobs, blob_kzg_commitments, proofs)
 
     def _on_block_data_availability_check(self, block) -> None:
-        """The check Deneb's ``on_block`` adds (fork-choice.md:70)."""
+        """The hook ``ForkChoiceMixin.on_block`` calls: the check Deneb's
+        ``on_block`` adds (fork-choice.md:70)."""
         assert self.is_data_available(hash_tree_root(block), block.body.blob_kzg_commitments)
 
     # -- fork upgrade (fork.md:77) -------------------------------------------

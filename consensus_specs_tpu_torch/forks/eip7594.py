@@ -26,8 +26,10 @@ are deferred into the block's one product pairing under the label
 :func:`..das.kernels.recover_cells_batch` (K9 on the card).  The spec
 loop stays reachable as ``verify_cell_proof_batch_loop``; no path of the
 runtime calls it.  The JAX engine's fault sites, breaker, audits and its
-``CS_TPU_DAS`` switch are not carried.  Fork choice is not carried:
-``is_data_available`` is a plain method.
+``CS_TPU_DAS`` switch are not carried.  Fork choice's ``on_block``
+reaches the sampling ``is_data_available`` through Deneb's
+``_on_block_data_availability_check``: each blob's cell batch joins the
+block's one product pairing.
 """
 from ..utils.hash_function import hash
 from ..utils.ssz import hash_tree_root, uint64, ByteVector, List, Container

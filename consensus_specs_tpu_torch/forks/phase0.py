@@ -1,9 +1,11 @@
 """phase0 beacon-chain spec runtime.
 
 Counterpart of ``consensus_specs_tpu/forks/phase0.py``: everything
-``state_transition`` reaches.  The fork-choice and validator-guide
-mixins are not carried yet.  Epoch processing goes through the port's
-vectorized epoch engine first (``ops/epoch_kernels.py``: each
+``state_transition`` reaches, and the fork choice of
+:class:`~.fork_choice.ForkChoiceMixin` (``forks/fork_choice.py``, over
+the proto-array engine of ``forkchoice/proto_array.py``).  The
+validator-guide mixin is not carried yet.  Epoch processing goes
+through the port's vectorized epoch engine first (``ops/epoch_kernels.py``: each
 ``try_process_*`` returns True when the engine committed the
 sub-transition, on the card or on the plain versions), inside the state
 column store's ``commit_scope`` (``state/arrays.py``), and falls to the
@@ -42,6 +44,7 @@ from ..utils.ssz.forest import hash_forest
 from ..ops import epoch_kernels
 from ..state import arrays as state_arrays
 from . import register_fork
+from .fork_choice import ForkChoiceMixin
 from .base_types import (
     Slot, Epoch, CommitteeIndex, ValidatorIndex, Gwei, Root, Hash32, Version,
     DomainType, ForkDigest, Domain, BLSPubkey, BLSSignature,
@@ -66,7 +69,7 @@ def _bytes_of(hexstr, width):
 
 
 @register_fork("phase0")
-class Phase0Spec:
+class Phase0Spec(ForkChoiceMixin):
     fork = "phase0"
     previous_fork = None
 

@@ -128,3 +128,21 @@ def test_entry_device_resolution():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             _build.device(None)
+
+
+@pytest.mark.parametrize("module", ["consensus_specs_tpu_torch.forkchoice.proto_array",
+                                    "consensus_specs_tpu_torch.forks.fork_choice"])
+def test_fork_choice_modules_stand_alone(module):
+    """The fork-choice modules are among the scanned files, and importing
+    them (with the fork runtimes they pull in) loads neither JAX nor the
+    JAX package."""
+    import subprocess
+    import sys
+    assert os.path.join(REPO, *module.split(".")) + ".py" in _port_files()
+    probe = ("import sys, importlib; importlib.import_module(sys.argv[1]); "
+             "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+             "'consensus_specs_tpu') or m.startswith(('jax.', 'consensus_specs_tpu.'))))")
+    out = subprocess.run([sys.executable, "-c", probe, module], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]"
